@@ -1,0 +1,90 @@
+"""KV-cached greedy decoding (port of taiwan_whisper_tpu/decode/greedy.py
+at temperature 0; the sampling branch waits for sequential long-form).
+
+The JAX ``lax.while_loop`` becomes a Python loop. Like the JAX loop it
+runs ``decode_step`` on every iteration, including the last. Its early
+exit on ``all(finished)`` costs a device-to-host sync in eager mode, so it
+is polled every 8 steps: finished rows only emit eot, so the
+result is the same. CUDA graphs for the step are later work.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from ..models import whisper as M
+from ..models.config import DtypePolicy, WhisperConfig, resolve_device
+from .rules import DecodeRules, greedy_rules_argmax
+
+_POLL_EVERY = 8  # decode steps between host checks of all(finished)
+
+
+@dataclasses.dataclass
+class DecodeResult:
+    """tokens includes the prefix; positions past the first <|endoftext|>
+    hold eot. lengths counts sampled tokens excluding eot."""
+
+    tokens: torch.Tensor  # [B, max_len] int32
+    lengths: torch.Tensor  # [B] int32
+    sum_logprobs: torch.Tensor  # [B] fp32 (sampled tokens incl. eot)
+    no_speech_probs: torch.Tensor  # [B] fp32
+
+
+@torch.inference_mode()
+def greedy_decode(params, enc_out: torch.Tensor, prefix: torch.Tensor,
+                  config: WhisperConfig, rules: DecodeRules,
+                  policy: DtypePolicy = DtypePolicy(), *,
+                  max_len: Optional[int] = None, sot_index: int = 0,
+                  valid_from: Optional[torch.Tensor] = None,
+                  quantize_cross_kv=0, device=None) -> DecodeResult:
+    """Greedy decode of a batch: enc_out [B, T_enc, d], prefix [B, P] (the
+    sot sequence). ``params`` are prepared for ``device`` (cuda unless
+    given; raises when CUDA is absent)."""
+    dev = resolve_device(device)
+    enc_out = enc_out.to(dev)
+    prefix = prefix.to(dev)
+    b, p_len = prefix.shape
+    max_len = max_len or config.max_target_positions
+    assert p_len < max_len
+    eot = rules.eot
+    ts_begin = rules.timestamp_begin
+    suppress = torch.from_numpy(rules.suppress_mask()).to(dev)
+    begin_suppress = torch.from_numpy(rules.begin_suppress_mask()).to(dev)
+
+    cross_kv = M.precompute_cross_kv(params, enc_out, config, policy,
+                                     quantize=quantize_cross_kv)
+    cache = M.init_cache(config, b, max_len, dtype=policy.compute_dtype, device=dev)
+    logits, sot_logits = M.prefill(params, cross_kv, cache, prefix, config, policy,
+                                   valid_from=valid_from, aux_index=sot_index)
+    # P(<|nospeech|>) at the <|startoftranscript|> position
+    no_speech_probs = torch.softmax(sot_logits, dim=-1)[:, rules.no_speech]
+
+    tokens = torch.full((b, max_len), eot, dtype=torch.int32, device=dev)
+    tokens[:, :p_len] = prefix
+    last_ts = torch.zeros(b, dtype=torch.int32, device=dev)
+    finished = torch.zeros(b, dtype=torch.bool, device=dev)
+    sum_logprobs = torch.zeros(b, dtype=torch.float32, device=dev)
+    lengths = torch.zeros(b, dtype=torch.int32, device=dev)
+
+    for i in range(p_len, max_len):
+        step = i - p_len
+        nxt, logprob = greedy_rules_argmax(
+            logits, step=step, last_token=tokens[:, i - 1],
+            penult_token=tokens[:, max(i - 2, 0)], last_timestamp=last_ts,
+            rules=rules, suppress=suppress, begin_suppress=begin_suppress)
+        active = ~finished
+        nxt = torch.where(active, nxt, eot)
+        sum_logprobs += torch.where(active, logprob, 0.0)
+        lengths += (active & (nxt != eot)).to(torch.int32)
+        last_ts = torch.where(active & (nxt >= ts_begin), nxt, last_ts)
+        tokens[:, i] = nxt
+        finished |= nxt == eot
+        logits = M.decode_step(params, cross_kv, cache, nxt, i, config, policy,
+                               valid_from=valid_from)
+        if (step + 1) % _POLL_EVERY == 0 and bool(finished.all()):
+            break
+    return DecodeResult(tokens=tokens, lengths=lengths, sum_logprobs=sum_logprobs,
+                        no_speech_probs=no_speech_probs)

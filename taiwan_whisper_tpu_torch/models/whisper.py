@@ -1,0 +1,319 @@
+"""Whisper encoder-decoder inference in PyTorch (port of
+taiwan_whisper_tpu/models/whisper.py).
+
+Plain functions over the weights dict of models/params.py, prepared once
+by ``prepare_params`` (compute-dtype matmul weights, fp32 LayerNorms). The
+JAX package's layouts are kept at the public functions: encoder q/k/v
+``[B, S, H, Dh]``, the cross K/V time-minor ``[L, B, H, Dh, T]`` with
+scales ``[L, B, H, Dh, 1]``, the self cache ``[L, B, H, Dh, S]``. On CUDA
+tensors encoder self-attention, cross-attention (decode steps and
+prefill) and cached self-attention go through the port's CUDA kernels;
+on CPU tensors through their plain versions.
+
+Differences from the JAX package, by design:
+* the KV cache is updated IN PLACE: each decode step writes its k/v at
+  position ``index`` of layer l right after layer l's attention (JAX
+  commits all layers after the layer scan; position ``index`` is masked
+  during the step either way), and ``prefill`` fills ``[0, P)`` in place;
+* ``decode_train``, ``forward``, ``extend`` and the int4 / "8x8" cross-KV
+  modes wait for later slices and raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Tuple, Union
+
+import torch
+import torch.nn.functional as F
+
+from ..ops.attention import attention_plain, encoder_attention
+from ..ops.decode_attention import cross_attention, self_attention
+from .config import DtypePolicy, WhisperConfig
+
+Params = Dict[str, Any]
+
+
+# ---------------------------------------------------------------------------
+# primitive layers
+# ---------------------------------------------------------------------------
+
+def _dense(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """y = x W^T + b with W [d_out, d_in] in the compute dtype."""
+    return F.linear(x, p["weight"], p.get("bias"))
+
+
+def _layer_norm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm in fp32 regardless of the compute dtype."""
+    y = F.layer_norm(x.float(), (x.shape[-1],), p["weight"], p["bias"], eps)
+    return y.to(x.dtype)
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="none")
+
+
+def _split_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
+    b, s, d = x.shape
+    return x.view(b, s, n_heads, d // n_heads)
+
+
+def _merge_heads(x: torch.Tensor) -> torch.Tensor:
+    b, s, h, dh = x.shape
+    return x.reshape(b, s, h * dh)
+
+
+def _lm_head(embed_tokens: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Tied output head: compute-dtype operands, fp32 accumulation AND fp32
+    logits — a bf16 product rounded to bf16 would create ties that the
+    greedy rules break toward text, flipping tokens."""
+    lead = x.shape[:-1]
+    x = x.reshape(-1, x.shape[-1]).to(embed_tokens.dtype)
+    if embed_tokens.dtype != torch.float32 and x.is_cuda:
+        y = torch.mm(x, embed_tokens.t(), out_dtype=torch.float32)
+    else:
+        # bf16 x bf16 products are exact in fp32, so upcasting first computes
+        # the same function (the CPU has no mixed-dtype product)
+        y = x.float() @ embed_tokens.float().t()
+    return y.view(*lead, -1)
+
+
+def _conv1d(p: Params, x: torch.Tensor, stride: int) -> torch.Tensor:
+    """1-D conv over [B, T, Cin] with SAME-1 padding -> [B, T', Cout]."""
+    y = F.conv1d(x.transpose(1, 2), p["weight"], p["bias"], stride=stride, padding=1)
+    return y.transpose(1, 2)
+
+
+# ---------------------------------------------------------------------------
+# encoder
+# ---------------------------------------------------------------------------
+
+def encode(params: Params, mel: torch.Tensor, config: WhisperConfig,
+           policy: DtypePolicy = DtypePolicy()) -> torch.Tensor:
+    """Encoder forward: conv stem -> +sinusoid positions -> N layers -> LN.
+    mel [B, n_frames, num_mel_bins] -> [B, max_source_positions, d_model]
+    in the compute dtype."""
+    p = params["encoder"]
+    dtype = policy.compute_dtype
+    n_heads = config.encoder_attention_heads
+    x = _gelu(_conv1d(p["conv1"], mel.to(dtype), stride=1))
+    x = _gelu(_conv1d(p["conv2"], x, stride=2))
+    x = x + p["embed_positions"]
+    for lp in p["layers"]:
+        h = _layer_norm(lp["self_attn_ln"], x)
+        a = lp["self_attn"]
+        q = _split_heads(_dense(a["q"], h), n_heads)
+        k = _split_heads(_dense(a["k"], h), n_heads)
+        v = _split_heads(_dense(a["v"], h), n_heads)
+        x = x + _dense(a["out"], _merge_heads(encoder_attention(q, k, v)))
+        h = _layer_norm(lp["final_ln"], x)
+        x = x + _dense(lp["fc2"], _gelu(_dense(lp["fc1"], h)))
+    return _layer_norm(p["ln_post"], x).to(dtype)
+
+
+def decode_train(*args, **kwargs):
+    raise NotImplementedError("decode_train waits for the training slice (ROADMAP Queue A)")
+
+
+def forward(*args, **kwargs):
+    raise NotImplementedError("forward waits for the training slice (ROADMAP Queue A)")
+
+
+def extend(*args, **kwargs):
+    raise NotImplementedError(
+        "extend waits for the speculative-decoding slice (ROADMAP Queue A)")
+
+
+# ---------------------------------------------------------------------------
+# decoder: incremental decode with the time-minor KV cache
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class KVCache:
+    """Self-attention cache of all decoder layers, [L, B, H, Dh, S] each,
+    updated in place."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+
+    @property
+    def max_len(self) -> int:
+        return self.k.shape[-1]
+
+
+def init_cache(config: WhisperConfig, batch: int, max_len: Optional[int] = None,
+               dtype=torch.bfloat16, device="cpu") -> KVCache:
+    s = max_len or config.max_target_positions
+    shape = (config.decoder_layers, batch, config.decoder_attention_heads,
+             config.head_dim, s)
+    return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                   v=torch.zeros(shape, dtype=dtype, device=device))
+
+
+@dataclasses.dataclass
+class QuantCrossKV:
+    """Quantized cross-attention K/V with per-(layer, batch, head, channel)
+    scales; the K scale folds into q and the V scale into the output."""
+
+    k_q: torch.Tensor  # [L, B, H, Dh, T] int8 / float8_e4m3fn (time-minor)
+    k_scale: torch.Tensor  # [L, B, H, Dh, 1] fp32
+    v_q: torch.Tensor
+    v_scale: torch.Tensor
+
+
+CrossKV = Union[Tuple[torch.Tensor, torch.Tensor], QuantCrossKV]
+
+
+def _quantize_kv_slice(x: torch.Tensor, bits):
+    """Symmetric per-channel quantization of a time-minor K or V tensor
+    (reduction over the minor time axis)."""
+    if bits == 8 or bits is True:
+        qmax, store = 127.0, torch.int8
+    elif bits == "fp8":
+        qmax, store = 448.0, torch.float8_e4m3fn
+    elif bits == 4 or bits == "8x8":
+        raise NotImplementedError(
+            f"quantize={bits!r} cross-KV waits for a later slice (ROADMAP Queue A)")
+    else:
+        raise ValueError(f"bits must be 8 or 'fp8', got {bits!r}")
+    xf = x.float()
+    m = xf.abs().amax(dim=-1, keepdim=True)
+    scale = m / qmax + 1e-12
+    xs = xf / scale
+    if bits != "fp8":  # fp8's cast rounds natively; ints need round+clip
+        xs = torch.clamp(torch.round(xs), -qmax, qmax)
+    return xs.to(store), scale
+
+
+def precompute_cross_kv(params: Params, enc_out: torch.Tensor, config: WhisperConfig,
+                        policy: DtypePolicy = DtypePolicy(), *, quantize=0) -> CrossKV:
+    """Cross-attention K/V of all layers, time-minor [L, B, H, Dh, T]
+    (a QuantCrossKV when ``quantize`` is 8/True or "fp8"), quantized layer
+    by layer so the fp32 transient stays one layer's size."""
+    dtype = policy.compute_dtype
+    n_heads = config.decoder_attention_heads
+    enc = enc_out.to(dtype)
+    ks, vs = [], []
+    for lp in params["decoder"]["layers"]:
+        a = lp["cross_attn"]
+        # [B, T, H, Dh] -> [B, H, Dh, T]
+        k = _split_heads(_dense(a["k"], enc), n_heads).permute(0, 2, 3, 1).contiguous()
+        v = _split_heads(_dense(a["v"], enc), n_heads).permute(0, 2, 3, 1).contiguous()
+        if quantize:
+            k, v = _quantize_kv_slice(k, quantize), _quantize_kv_slice(v, quantize)
+        ks.append(k)
+        vs.append(v)
+    if quantize:
+        return QuantCrossKV(k_q=torch.stack([k[0] for k in ks]),
+                            k_scale=torch.stack([k[1] for k in ks]),
+                            v_q=torch.stack([v[0] for v in vs]),
+                            v_scale=torch.stack([v[1] for v in vs]))
+    return torch.stack(ks), torch.stack(vs)
+
+
+def _cross_layer(cross_kv: CrossKV, layer: int):
+    if isinstance(cross_kv, QuantCrossKV):
+        return (cross_kv.k_q[layer], cross_kv.k_scale[layer],
+                cross_kv.v_q[layer], cross_kv.v_scale[layer])
+    return cross_kv[0][layer], cross_kv[1][layer]
+
+
+def _cross_attention(q: torch.Tensor, cross_slice, dtype) -> torch.Tensor:
+    """q [B, Sq, H, Dh] against one layer's cross K/V [B, H, Dh, T]
+    (plain or quantized). 1/sqrt(d) and the K scale fold into q in fp32
+    before one cast to the compute dtype; the V scale multiplies the fp32
+    attention output."""
+    scale = q.shape[-1] ** -0.5
+    if len(cross_slice) == 4:
+        kq, ks, vq, vs = cross_slice
+        qs = (q.float() * scale * ks.permute(0, 3, 1, 2)).to(dtype)
+    else:
+        kq, vq = cross_slice
+        vs = None
+        qs = (q * scale).to(dtype)
+    att = cross_attention(qs, kq, vq)  # fp32 [B, Sq, H, Dh]
+    if vs is not None:
+        att = att * vs.permute(0, 3, 1, 2)
+    return att.to(dtype)
+
+
+def _cached_self_attn(lp: Params, h: torch.Tensor, cache_k: torch.Tensor,
+                      cache_v: torch.Tensor, index: int, n_heads: int, dtype,
+                      valid_from: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One-token self-attention against the cache [B, H, Dh, S]: the
+    current token is attended to directly (cache position ``index`` stays
+    masked), then its k/v are written into the cache at ``index`` in place.
+    h: [B, 1, d] -> [B, 1, d]."""
+    b = h.shape[0]
+    q = _dense(lp["q"], h).view(b, n_heads, -1)  # [B, H, Dh]
+    k_t = _dense(lp["k"], h).view(b, n_heads, -1).to(cache_k.dtype)
+    v_t = _dense(lp["v"], h).view(b, n_heads, -1).to(cache_v.dtype)
+    qh = q * (q.shape[-1] ** -0.5)
+    out = self_attention(qh, cache_k, cache_v, k_t, v_t, index, valid_from)
+    cache_k[..., index] = k_t
+    cache_v[..., index] = v_t
+    return _dense(lp["out"], out.to(dtype).reshape(b, 1, -1))
+
+
+def decode_step(params: Params, cross_kv: CrossKV, cache: KVCache,
+                token: torch.Tensor, index: int, config: WhisperConfig,
+                policy: DtypePolicy = DtypePolicy(), *,
+                valid_from: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One decoder step for ``token`` ([B] or [B, 1]) at position
+    ``index``; updates ``cache`` in place and returns fp32 logits [B, vocab]."""
+    p = params["decoder"]
+    dtype = policy.compute_dtype
+    n_heads = config.decoder_attention_heads
+    if token.dim() == 1:
+        token = token[:, None]
+    x = p["embed_tokens"][token] + p["embed_positions"][index]  # [B, 1, d]
+    for i, lp in enumerate(p["layers"]):
+        h = _layer_norm(lp["self_attn_ln"], x)
+        x = x + _cached_self_attn(lp["self_attn"], h, cache.k[i], cache.v[i], index,
+                                  n_heads, dtype, valid_from)
+        h = _layer_norm(lp["cross_attn_ln"], x)
+        q = _split_heads(_dense(lp["cross_attn"]["q"], h), n_heads)
+        att = _cross_attention(q, _cross_layer(cross_kv, i), dtype)
+        x = x + _dense(lp["cross_attn"]["out"], _merge_heads(att))
+        h = _layer_norm(lp["final_ln"], x)
+        x = x + _dense(lp["fc2"], _gelu(_dense(lp["fc1"], h)))
+    x = _layer_norm(p["ln_post"], x)
+    return _lm_head(p["embed_tokens"], x[:, 0])
+
+
+def prefill(params: Params, cross_kv: CrossKV, cache: KVCache, tokens: torch.Tensor,
+            config: WhisperConfig, policy: DtypePolicy = DtypePolicy(), *,
+            valid_from: Optional[torch.Tensor] = None,
+            aux_index: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Run the prompt [B, P] through the decoder in one pass, filling
+    cache[..., 0:P] in place. Returns (fp32 logits at the last prompt
+    position [B, vocab], fp32 logits at ``aux_index`` [B, vocab] — the
+    no-speech probe at <|startoftranscript|>)."""
+    p = params["decoder"]
+    dtype = policy.compute_dtype
+    n_heads = config.decoder_attention_heads
+    b, pl_len = tokens.shape
+    x = p["embed_tokens"][tokens] + p["embed_positions"][:pl_len]
+    mask = torch.tril(torch.ones(pl_len, pl_len, dtype=torch.bool, device=tokens.device))
+    mask = mask[None, None]
+    if valid_from is not None:
+        keep = torch.arange(pl_len, device=tokens.device)[None, :] >= valid_from[:, None]
+        mask = mask & keep[:, None, None, :]
+    for i, lp in enumerate(p["layers"]):
+        h = _layer_norm(lp["self_attn_ln"], x)
+        a = lp["self_attn"]
+        q = _split_heads(_dense(a["q"], h), n_heads)
+        k = _split_heads(_dense(a["k"], h), n_heads)
+        v = _split_heads(_dense(a["v"], h), n_heads)
+        x = x + _dense(a["out"], _merge_heads(attention_plain(q, k, v, mask)))
+        cache.k[i, ..., :pl_len] = k.permute(0, 2, 3, 1)
+        cache.v[i, ..., :pl_len] = v.permute(0, 2, 3, 1)
+        h = _layer_norm(lp["cross_attn_ln"], x)
+        q = _split_heads(_dense(lp["cross_attn"]["q"], h), n_heads)
+        att = _cross_attention(q, _cross_layer(cross_kv, i), dtype)
+        x = x + _dense(lp["cross_attn"]["out"], _merge_heads(att))
+        h = _layer_norm(lp["final_ln"], x)
+        x = x + _dense(lp["fc2"], _gelu(_dense(lp["fc1"], h)))
+    x = _layer_norm(p["ln_post"], x)
+    both = _lm_head(p["embed_tokens"], torch.stack([x[:, -1], x[:, aux_index]], dim=1))
+    return both[:, 0], both[:, 1]

@@ -1,0 +1,314 @@
+"""Stage 1: pseudo-labelling — the teacher transcribes long-form audio
+(port of taiwan_whisper_tpu/pipeline/label.py, pooled chunk path).
+
+``label_files`` mirrors the JAX package's pooled chunk scheduler
+(``_label_files_pooled`` with ``wire_mode="chunks"``): 30 s chunks of all
+files feed one queue and are decoded in full ``batch_size`` batches
+(padding rows repeat the last chunk), each batch stacked on an int16 wire
+and staged ahead on a thread while the previous one decodes; one batch is
+mel (kernel) -> encode -> greedy decode; segments scatter back through the
+stride core-region merge to per-file CSVs.
+
+This slice labels with VAD off (each file is one region) plus the numpy
+energy gate. The spectral device VAD, the device-resident driver, beam
+search and speculative decoding wait for later slices.
+"""
+
+from __future__ import annotations
+
+import csv
+import dataclasses
+import os
+import time
+import wave
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..audio.io import load_audio_16k
+from ..audio.manifest import read_manifest
+from ..audio.mel import SAMPLE_RATE
+from ..decode.greedy import greedy_decode
+from ..decode.longform import LongformResult, _tokens_to_segments, chunk_with_stride
+from ..decode.rules import DecodeRules
+from ..models import whisper as M
+from ..models.config import DtypePolicy, WhisperConfig, resolve_device
+from ..models.params import prepare_params
+from ..ops.mel_kernel import log_mel
+from ..text.tokenizer import WhisperTokenizer
+
+
+@dataclasses.dataclass
+class LabelConfig:
+    language: str = "zh"
+    task: str = "transcribe"
+    strategy: str = "chunked"  # sequential waits for a later slice
+    batch_size: int = 96  # device batch of pooled 30 s chunks
+    # None: derive from the model context (30 s for real Whisper configs;
+    # stride chunk/6, the reference's ratio)
+    chunk_s: Optional[float] = None
+    stride_s: Optional[float] = None
+    energy_vad_threshold: float = 0.0  # 0 disables; else min RMS to transcribe
+    # region-gated decode: this slice supports only vad_mode="off" (or
+    # vad_regions=False), which decodes each whole file
+    vad_regions: bool = True
+    vad_mode: str = "off"
+    quantize_kv: object = False  # 0/False off; True/8 int8; "fp8" e4m3
+    num_beams: int = 1  # >1 waits for the beam-search slice
+    io_threads: int = 2  # host-side load prefetch workers
+    stage_depth: int = 2  # batches staged ahead of the decode loop
+    max_decode_tokens: Optional[int] = None  # cap sampled tokens per chunk
+
+
+def energy_vad_is_speech(audio: np.ndarray, threshold: float) -> bool:
+    if threshold <= 0:
+        return True
+    return float(np.sqrt(np.mean(np.square(audio)))) >= threshold
+
+
+def write_label_csv(path: str, result: LongformResult, tok: WhisperTokenizer):
+    """{start,end,text} CSV, one row per segment."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w", encoding="utf-8", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["start", "end", "text"])
+        for seg in result.segments:
+            w.writerow([f"{seg.start:.3f}", f"{seg.end:.3f}", seg.text(tok)])
+
+
+@dataclasses.dataclass
+class _ChunkTask:
+    """One padded chunk awaiting decode, tagged for scatter-back. Offsets
+    are region-relative; the region start is a post-shift."""
+
+    file_idx: int
+    audio: np.ndarray  # [chunk_len] fp32, padded
+    region_start: float
+    offset: float
+    stride_left: float
+    stride_right: float
+    window_duration: float  # unpadded seconds in this chunk
+
+
+def _check_supported(cfg: LabelConfig):
+    if cfg.vad_regions and cfg.vad_mode != "off":
+        raise NotImplementedError(
+            f"vad_mode={cfg.vad_mode!r} waits for the port's device VAD "
+            "(ROADMAP Queue A); use vad_mode='off'")
+    if cfg.num_beams > 1:
+        raise NotImplementedError("num_beams > 1 waits for the beam-search slice")
+    if cfg.strategy != "chunked":
+        raise NotImplementedError(f"strategy={cfg.strategy!r} waits for a later slice")
+
+
+def _file_to_tasks(file_idx: int, audio: np.ndarray, chunk_s: float,
+                   stride_s: float) -> List[_ChunkTask]:
+    """Host-side prep of one file: regions (the whole file while VAD is
+    off) -> strided chunks."""
+    regions = [(0.0, len(audio) / SAMPLE_RATE)]
+    tasks: List[_ChunkTask] = []
+    for a, b in regions:
+        span = audio[int(a * SAMPLE_RATE): int(b * SAMPLE_RATE)]
+        if len(span) == 0:
+            continue
+        for chunk, off, sl, sr in chunk_with_stride(span, chunk_s, stride_s, stride_s):
+            dur = min(chunk_s, len(span) / SAMPLE_RATE - off)
+            tasks.append(_ChunkTask(file_idx, chunk, a, off, sl, sr, dur))
+    return tasks
+
+
+def decode_batch(params, wire: torch.Tensor, prefix: torch.Tensor, config: WhisperConfig,
+                 rules: DecodeRules, policy: DtypePolicy, *, max_len, quantize_kv, device):
+    """One device batch: int16 wire -> fp32 audio -> log-mel -> encode ->
+    greedy decode."""
+    audio = wire.to(device, non_blocking=True).float() / 32768.0
+    mel = log_mel(audio, config.num_mel_bins)
+    with torch.inference_mode():
+        enc = M.encode(params, mel, config, policy)
+    return greedy_decode(params, enc, prefix, config, rules, policy, max_len=max_len,
+                         quantize_cross_kv=quantize_kv, device=device)
+
+
+def label_files(
+    params,
+    config: WhisperConfig,
+    tok: WhisperTokenizer,
+    audio_paths: Sequence[str],
+    output_dir: str,
+    cfg: LabelConfig = LabelConfig(),
+    policy: DtypePolicy = DtypePolicy(),
+    *,
+    device=None,
+    log_every: int = 10,
+) -> dict:
+    """Transcribe each file to <output_dir>/<stem>.csv through the pooled
+    chunk scheduler; returns stats. Runs on ``device`` (cuda unless given)."""
+    dev = resolve_device(device)
+    _check_supported(cfg)
+    os.makedirs(output_dir, exist_ok=True)
+    params = prepare_params(params, policy, dev)
+
+    special = tok.special
+    rules = DecodeRules.from_special(special, timestamps=True)
+    sot_seq = tok.sot_sequence(cfg.language, cfg.task, timestamps=True)
+    chunk_s = cfg.chunk_s or config.max_source_positions * 2 * 160 / SAMPLE_RATE
+    stride_s = cfg.stride_s if cfg.stride_s is not None else chunk_s / 6.0
+    bs = cfg.batch_size
+    max_len = len(sot_seq) + cfg.max_decode_tokens if cfg.max_decode_tokens else None
+    prefix = torch.tensor([sot_seq] * bs, dtype=torch.int32, device=dev)
+
+    states: dict = {}  # file_idx -> {segments, remaining, produced, out_csv}
+    buffer: List[_ChunkTask] = []
+    stats = dict(files=0, skipped=0, failed=0, audio_seconds=0.0,
+                 chunks=0, batches=0, pad_slots=0,
+                 decode_s=0.0, stage_wait_s=0.0, load_wait_s=0.0, scatter_s=0.0)
+    t0 = time.time()
+
+    def finish_file(idx):
+        st = states.pop(idx)
+        st["segments"].sort(key=lambda s: s.start)
+        write_label_csv(st["out_csv"], LongformResult(st["segments"]), tok)
+        stats["files"] += 1
+        if log_every and stats["files"] % log_every == 0:
+            rate = stats["audio_seconds"] / max(time.time() - t0, 1e-6)
+            print(f"[label] {stats['files']} files, {rate:.1f} audio-s/s")
+
+    # staging: a thread stacks each batch on the int16 wire (lossless for
+    # PCM16 sources) into pinned memory so the upload of batch N+1 overlaps
+    # the decode of batch N
+    stage_pool = ThreadPoolExecutor(max_workers=1)
+    staged: deque = deque()  # (batch, future of the wire tensor)
+
+    def stack(batch: List[_ChunkTask]) -> torch.Tensor:
+        pad_n = bs - len(batch)
+        arr = np.stack([t.audio for t in batch] + [batch[-1].audio] * pad_n)
+        arr = np.clip(np.round(arr * 32768.0), -32768, 32767).astype(np.int16)
+        wire = torch.from_numpy(arr)
+        return wire.pin_memory() if dev.type == "cuda" else wire
+
+    def process_oldest():
+        batch, fut = staged.popleft()
+        tw = time.perf_counter()
+        wire = fut.result()
+        stats["stage_wait_s"] += time.perf_counter() - tw
+        td = time.perf_counter()
+        res = decode_batch(params, wire, prefix, config, rules, policy, max_len=max_len,
+                           quantize_kv=cfg.quantize_kv, device=dev)
+        tokens = res.tokens.cpu().numpy()
+        lengths = res.lengths.cpu().numpy()
+        stats["decode_s"] += time.perf_counter() - td
+        stats["batches"] += 1
+        stats["pad_slots"] += bs - len(batch)
+        ts = time.perf_counter()
+        for j, t in enumerate(batch):
+            sampled = tokens[j][len(sot_seq): len(sot_seq) + int(lengths[j])].tolist()
+            segs, _, _ = _tokens_to_segments(sampled, special, t.offset, t.window_duration)
+            lo = t.offset + t.stride_left
+            hi = t.offset + chunk_s - t.stride_right
+            st = states[t.file_idx]
+            for s in segs:
+                if (s.start >= lo or t.stride_left == 0.0) and (
+                    s.start < hi or t.stride_right == 0.0
+                ):
+                    s.start += t.region_start  # post-shift: per-file order
+                    s.end += t.region_start
+                    st["segments"].append(s)
+            st["remaining"] -= 1
+            if st["remaining"] == 0 and st["produced"]:
+                finish_file(t.file_idx)
+        stats["scatter_s"] += time.perf_counter() - ts
+
+    def drain(force=False):
+        while len(buffer) >= bs or (force and buffer):
+            batch = buffer[:bs]
+            del buffer[:bs]
+            staged.append((batch, stage_pool.submit(stack, batch)))
+            while len(staged) > max(cfg.stage_depth, 1):
+                process_oldest()
+        while force and staged:
+            process_oldest()
+
+    def load_one(item):
+        idx, path = item
+        try:
+            audio = load_audio_16k(path)
+        except (OSError, EOFError, ValueError, NotImplementedError, wave.Error) as e:
+            return idx, None, 0.0, f"{e}"  # tolerate unreadable files
+        if not energy_vad_is_speech(audio, cfg.energy_vad_threshold):
+            return idx, [], len(audio) / SAMPLE_RATE, None
+        return idx, _file_to_tasks(idx, audio, chunk_s, stride_s), \
+            len(audio) / SAMPLE_RATE, None
+
+    todo = []
+    for idx, path in enumerate(audio_paths):
+        stem = os.path.splitext(os.path.basename(path))[0]
+        out_csv = os.path.join(output_dir, f"{stem}.csv")
+        if os.path.exists(out_csv):  # resumable
+            stats["skipped"] += 1
+            continue
+        todo.append((idx, path))
+        states[idx] = dict(segments=[], remaining=0, produced=False, out_csv=out_csv)
+
+    def ingest_tasks(idx, tasks):
+        st = states[idx]
+        st["remaining"] = len(tasks)
+        st["produced"] = True
+        if not tasks:  # no speech anywhere: empty CSV now
+            finish_file(idx)
+            return
+        buffer.extend(tasks)
+        stats["chunks"] += len(tasks)
+        drain()
+
+    # bounded look-ahead: io_threads workers load files while the device
+    # decodes; files enter the queue in submission order
+    with ThreadPoolExecutor(max_workers=max(cfg.io_threads, 1)) as pool, stage_pool:
+        inflight = []
+        it = iter(todo)
+
+        def top_up():
+            while len(inflight) < max(cfg.io_threads, 1) * 2:
+                try:
+                    item = next(it)
+                except StopIteration:
+                    return
+                inflight.append(pool.submit(load_one, item))
+
+        top_up()
+        while inflight:
+            tl = time.perf_counter()
+            idx, payload, secs, err = inflight.pop(0).result()
+            stats["load_wait_s"] += time.perf_counter() - tl
+            top_up()
+            if payload is None:
+                print(f"[label] failed to read {audio_paths[idx]}: {err}")
+                states.pop(idx)
+                stats["failed"] += 1
+                continue
+            stats["audio_seconds"] += secs
+            ingest_tasks(idx, payload)
+        drain(force=True)
+
+    if states:
+        raise RuntimeError(f"unfinished files: {sorted(states)}")
+    stats["wall_seconds"] = time.time() - t0
+    stats["device"] = str(dev)
+    return stats
+
+
+def run_labelling(manifest_path: str, model_dir: str, output_dir: str,
+                  cfg: LabelConfig = LabelConfig(), tokenizer_dir: Optional[str] = None,
+                  *, policy: DtypePolicy = DtypePolicy(), device=None) -> dict:
+    """CLI entry: load the model and label every file of the manifest."""
+    from ..models.io import load_model
+
+    _check_supported(cfg)
+    dev = resolve_device(device)
+    params, config = load_model(model_dir)
+    tok = (WhisperTokenizer.from_pretrained_dir(tokenizer_dir)
+           if tokenizer_dir else WhisperTokenizer())
+    paths = read_manifest(manifest_path).absolute_paths()
+    return label_files(params, config, tok, paths, output_dir, cfg, policy, device=dev)

@@ -1,0 +1,131 @@
+"""The port's labelling slice end to end on the CPU: ``label_files`` and
+``cli label`` of taiwan_whisper_tpu_torch against the JAX package's pooled
+chunk path (VAD off, fp32 policy, the same weights through
+``from_jax_params``) must write byte-identical CSVs."""
+
+import json
+import os
+
+import numpy as np
+import pytest
+
+from taiwan_whisper_tpu.audio.io import write_wav
+from taiwan_whisper_tpu.models.config import DtypePolicy as JaxPolicy
+from taiwan_whisper_tpu.models.config import WhisperConfig as JaxConfig
+from taiwan_whisper_tpu.models.params import init_params as jax_init_params
+from taiwan_whisper_tpu.pipeline.label import LabelConfig as JaxLabelConfig
+from taiwan_whisper_tpu.pipeline.label import label_files as jax_label_files
+from taiwan_whisper_tpu.text.tokenizer import MULTILINGUAL
+from taiwan_whisper_tpu.text.tokenizer import WhisperTokenizer as JaxTokenizer
+from taiwan_whisper_tpu.text.tokenizer import bytes_to_unicode
+from taiwan_whisper_tpu_torch import cli as port_cli
+from taiwan_whisper_tpu_torch.models.config import DtypePolicy, WhisperConfig
+from taiwan_whisper_tpu_torch.models.io import save_hf_checkpoint
+from taiwan_whisper_tpu_torch.models.params import from_jax_params
+from taiwan_whisper_tpu_torch.pipeline.label import LabelConfig, label_files
+from taiwan_whisper_tpu_torch.text.tokenizer import WhisperTokenizer
+
+SR = 16000
+TINY = dict(vocab_size=MULTILINGUAL.vocab_size, d_model=64, ffn_dim=128,
+            encoder_layers=1, decoder_layers=2, encoder_attention_heads=4,
+            decoder_attention_heads=4, max_source_positions=60,
+            max_target_positions=48)
+
+
+def _burst(rng, seconds):
+    n = int(seconds * SR)
+    t = np.arange(n) / SR
+    return (rng.randn(n) * 0.3 * (0.6 + 0.4 * np.sin(2 * np.pi * 4 * t))
+            ).astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def corpus(tmp_path_factory):
+    """The WAV corpus of tests/test_label_pooled.py plus a byte-level
+    vocabulary, so CSV text is real decoded bytes."""
+    d = tmp_path_factory.mktemp("torch_label_corpus")
+    rng = np.random.RandomState(0)
+    sil = lambda s: np.zeros(int(s * SR), np.float32)  # noqa: E731
+    a = np.concatenate([_burst(rng, 2.0), sil(1.2), _burst(rng, 2.5)])
+    b = np.concatenate([sil(0.4), _burst(rng, 0.9)])
+    c = sil(2.0)
+    for name, audio in (("a", a), ("b", b), ("c", c)):
+        write_wav(str(d / f"{name}.wav"), audio)
+    tok_dir = d / "tok"
+    tok_dir.mkdir()
+    vocab = {ch: i for i, ch in enumerate(bytes_to_unicode().values())}
+    (tok_dir / "vocab.json").write_text(json.dumps(vocab), encoding="utf-8")
+    (tok_dir / "merges.txt").write_text("", encoding="utf-8")
+    return d
+
+
+@pytest.fixture(scope="module")
+def weights():
+    jcfg = JaxConfig(**TINY)
+    jparams = jax_init_params(jcfg, seed=0)
+    return jparams, jcfg, from_jax_params(jparams, jcfg), WhisperConfig(**TINY)
+
+
+def _read_csvs(out_dir):
+    out = {}
+    for name in sorted(os.listdir(out_dir)):
+        if name.endswith(".csv"):
+            with open(os.path.join(out_dir, name), "rb") as f:
+                out[name] = f.read()
+    return out
+
+
+def test_label_files_csvs_match_jax(tmp_path, corpus, weights):
+    jparams, jcfg, params, cfg = weights
+    paths = [str(corpus / f"{n}.wav") for n in ("a", "b", "c")]
+    tok_dir = str(corpus / "tok")
+    jax_dir, port_dir = str(tmp_path / "jax"), str(tmp_path / "port")
+    jax_label_files(
+        jparams, jcfg, JaxTokenizer.from_pretrained_dir(tok_dir), paths, jax_dir,
+        JaxLabelConfig(vad_regions=False, vad_mode="off", wire_mode="chunks",
+                       batch_size=8, max_decode_tokens=16),
+        JaxPolicy.fp32(), log_every=0)
+    stats = label_files(
+        params, cfg, WhisperTokenizer.from_pretrained_dir(tok_dir), paths, port_dir,
+        LabelConfig(vad_mode="off", batch_size=8, max_decode_tokens=16),
+        DtypePolicy.fp32(), device="cpu", log_every=0)
+    assert stats["files"] == 3 and stats["chunks"] > 8  # more than one batch
+    assert stats["batches"] == -(-stats["chunks"] // 8)
+    jax_csvs, port_csvs = _read_csvs(jax_dir), _read_csvs(port_dir)
+    assert set(port_csvs) == {"a.csv", "b.csv", "c.csv"}
+    assert port_csvs == jax_csvs
+    assert port_csvs["a.csv"].count(b"\n") > 1  # segments were decoded
+
+
+def test_cli_label_matches_label_files(tmp_path, corpus, weights):
+    """`label --device cpu` through the port's CLI (bf16 default policy)
+    writes what the port's label_files writes from the same checkpoint."""
+    from taiwan_whisper_tpu_torch.audio.manifest import Manifest, write_manifest
+
+    _, _, params, cfg = weights
+    model_dir = str(tmp_path / "model")
+    save_hf_checkpoint(model_dir, params, cfg)
+    manifest = str(tmp_path / "m.tsv")
+    write_manifest(manifest, Manifest(root=str(corpus), paths=["a.wav", "b.wav"]))
+    tok_dir = str(corpus / "tok")
+    cli_dir, lib_dir = str(tmp_path / "cli"), str(tmp_path / "lib")
+    stats = port_cli.main([
+        "label", "--manifest", manifest, "--model", model_dir, "--output_dir", cli_dir,
+        "--batch_size", "8", "--vad_mode", "off", "--quantize_kv", "fp8",
+        "--max_decode_tokens", "16", "--tokenizer_dir", tok_dir, "--device", "cpu"])
+    assert stats["files"] == 2 and stats["device"] == "cpu"
+    label_files(params, cfg, WhisperTokenizer.from_pretrained_dir(tok_dir),
+                [str(corpus / "a.wav"), str(corpus / "b.wav")], lib_dir,
+                LabelConfig(vad_mode="off", batch_size=8, max_decode_tokens=16,
+                            quantize_kv="fp8"),
+                device="cpu", log_every=0)
+    assert _read_csvs(cli_dir) == _read_csvs(lib_dir)
+
+
+@pytest.mark.parametrize("kw", [dict(vad_mode="spectral"), dict(num_beams=2),
+                                dict(strategy="sequential")])
+def test_unported_label_options_raise(tmp_path, weights, kw):
+    _, _, params, cfg = weights
+    with pytest.raises(NotImplementedError):
+        label_files(params, cfg, WhisperTokenizer(), [], str(tmp_path),
+                    LabelConfig(**kw), device="cpu")
