@@ -1,7 +1,8 @@
 """Drive the PyTorch port on one CUDA card and check it.
 
     python3 chip_smoke.py            # every phase, as a release check runs it
-    python3 chip_smoke.py kernels    # only the named phases (kernels, label, agree)
+    python3 chip_smoke.py kernels    # only the named phases
+                                     # (kernels, label, train, train_agree, agree)
 
 Phases, each raising on failure:
 
@@ -10,16 +11,32 @@ Phases, each raising on failure:
 2. kernels — calls each kernel's wrapper, in every variant a driven path
    launches, and holds it against its plain PyTorch version on the same
    inputs, with the tolerance stated beside it: bf16 at the labelling
-   path's shapes (large-v2, batch 32), fp32 at the agree phase's (base,
-   batch 4). Times kernel, plain version and, where one exists, the one
-   PyTorch call that computes the same function (CUDA events, median, L2
-   flushed before every launch).
+   path's shapes (large-v2, batch 32) and the finetune path's (the
+   encoder attention's LSE and backward at batch 8), fp32 at the agree
+   phases' (base, batch 4), and the LayerNorm kernel (on no path, as in
+   the JAX package) at the encoder's LN shape. Times kernel, plain version
+   and, where one exists, the one PyTorch call that computes the same
+   function (CUDA events, median, L2 flushed before every launch).
 3. label   — the port's ``cli label`` at full large-v2 width with random
    bf16 weights from a seed: 8 synthetic WAVs of 170 s (64 chunks, two
    batches of 32), fp8 cross-KV, VAD off, 192-token budget. Every launch
    counter is zeroed just before and read just after, and must equal the
    count this run implies.
-4. agree   — the base preset at batch 4, fp32 policy with TF32 off, greedy
+4. train   — stage 3 at full large-v2 width from the same checkpoint:
+   ``cli init-student`` (32-2), ``cli distill`` (ce 0.8, kl 1.0, T 2,
+   fp32 masters, bf16 compute, frozen encoder) at batch 32, and at the
+   shipped 64 when twice the batch-32 peak memory fits the card, then
+   ``cli finetune`` of the student with the encoder trainable at batch 8.
+   A few steps each on one synthetic 30 s WAV segment listed many times
+   with a byte-level vocab, so every step sees the same batch and the
+   loss must fall; launch counters are checked per run (distill: mel 1
+   and encoder forward 32 per step; finetune: mel 1, encoder forward 64,
+   as each checkpointed layer runs twice, and backward 32 per step).
+5. train_agree — a small config (d 256, S 300: a ragged key tile) at the
+   fp32 policy with TF32 off, trainable encoder: three train steps on the
+   card and on the CPU plain path; losses agree to 1e-4 relative and the
+   updated params to 1e-5, launch counters checked.
+6. agree   — the base preset at batch 4, fp32 policy with TF32 off, greedy
    for 32 tokens on the card and on the CPU plain path; token agreement
    must be at least 0.98 of positions, and the launch counters, zeroed
    just before the card's run, must equal the count that run implies.
@@ -33,6 +50,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -47,6 +65,39 @@ PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
 LARGE_V2_BATCH = 32
 LABEL_FILES, LABEL_SECONDS, MAX_DECODE_TOKENS = 8, 170.0, 192
 AGREE_BATCH, AGREE_TOKENS = 4, 32
+FINETUNE_BATCH = 8
+DISTILL_STEPS, FINETUNE_STEPS = 6, 5
+CARD_BYTES = 76e9  # what a run may plan to hold of the card's 80 GB
+
+
+def kernel_counters():
+    """The launch counter of every kernel wrapper, by kernel name."""
+    from taiwan_whisper_tpu_torch.ops import attention, decode_attention, layer_norm, mel_kernel
+
+    return {"mel": mel_kernel.log10_mel_spectrum,
+            "encoder_attention": attention.encoder_attention,
+            "encoder_attention_bwd": attention.encoder_attention_backward,
+            "cross_decode_attention": decode_attention.cross_attention,
+            "self_decode_attention": decode_attention.self_attention,
+            "layer_norm": layer_norm.layer_norm}
+
+
+def zero_counters():
+    for fn in kernel_counters().values():
+        fn.launches = 0
+
+
+def read_counters():
+    return {k: fn.launches for k, fn in kernel_counters().items()}
+
+
+def add_launches(entries: dict, results: dict, path: str, launches: dict):
+    """Record one main path's launch counts: per path in ``results`` and
+    summed over the paths in the kernels line."""
+    results.setdefault("launches_by_path", {})[path] = launches
+    for k, n in launches.items():
+        e = entries.setdefault(k, {})
+        e["launches"] = e.get("launches", 0) + n
 
 
 def log(msg: str):
@@ -78,8 +129,13 @@ def time_ms(fn, torch, iters: int = 10, flush=None) -> float:
     return float(np.median(times))
 
 
+def bf16_ulp(x: float) -> float:
+    """Spacing of bf16 values at magnitude ``x`` (8 significant bits)."""
+    return 2.0 ** (int(np.floor(np.log2(x))) - 7)
+
+
 def max_abs(a, b) -> float:
-    return float((a.float() - b.float()).abs().max())
+    return float((a.detach().float() - b.detach().float()).abs().max())
 
 
 # ---------------------------------------------------------------------------
@@ -276,6 +332,129 @@ def phase_kernels(torch, entries: dict, checks: list):
     self_case(B, H, S, bf16, torch.randint(0, 3, (B,), generator=g, device=dev,
                                            dtype=torch.int32), 1e-3)
     self_case(AB, AH, AS, f32, None, 1e-5)
+    attention_backward_cases(torch, entries, record, g, flush)
+    layer_norm_cases(torch, entries, record, g, flush)
+
+
+def attention_backward_cases(torch, entries, record, g, flush):
+    """The differentiable encoder attention: the forward's LSE output and
+    the backward kernels, bf16 at the finetune path's shapes (large-v2,
+    batch 8) and fp32 at the agree phase's (base, batch 4)."""
+    import torch.nn.functional as F
+
+    from taiwan_whisper_tpu_torch.ops import attention as EA
+
+    dev = flush.device
+    T, D = 1500, 64
+    src = "taiwan_whisper_tpu_torch/csrc/encoder_attention_bwd.cu"
+    rep = "taiwan_whisper_tpu/ops/attention.py:158"
+
+    # LSE of the scaled scores, natural log, ~log(1500) + O(1) ~ 8. The
+    # kernel sums exact bf16 products in fp32 like the plain version (the
+    # 1/8 scale is a power of two): tolerance 1e-4, ~100 fp32 ulps at 8.
+    # The output of the LSE-writing launch must equal the plain launch's
+    # bit for bit (same code, one more store).
+    for dtype, (b, h) in ((torch.bfloat16, (FINETUNE_BATCH, 20)),
+                          (torch.float32, (AGREE_BATCH, 8))):
+        q, k, v = (torch.randn((b, T, h, D), generator=g, device=dev).to(dtype)
+                   for _ in range(3))
+        out, lse = EA.encoder_attention_lse(q, k, v)
+        same = torch.equal(out, EA.encoder_attention(q, k, v))
+        err = max_abs(lse, EA.lse_plain(q, k))
+        log(f"[kernel] encoder_attention_lse[{str(dtype)[6:]}]: lse err {err:.3g} "
+            f"(tol 1e-4), output equal to the no-LSE launch: {same}")
+        if not (err <= 1e-4 and same):
+            raise AssertionError(f"LSE output: err {err:.3g}, output equal {same}")
+    del q, k, v, out, lse
+
+    def case(key, q, k, v, dout, tol, lib, dtype_kind):
+        """``tol`` None: two bf16 ulps at each gradient's largest |plain|,
+        checked per gradient (the combined check takes the largest)."""
+        b, s, h, d = q.shape
+        out, lse = EA.encoder_attention_lse(q, k, v)
+        got = EA.encoder_attention_backward(q, k, v, out, lse, dout)
+        ref = EA.attention_backward_plain(q, k, v, dout)
+        tols = []
+        for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+            err, top = max_abs(a, r), float(r.float().abs().max())
+            tols.append(tol if tol is not None else 2 * bf16_ulp(top))
+            log(f"[kernel] {key} {name}: err {err:.3g} (tol {tols[-1]:.3g}), max |plain| "
+                f"{top:.3g}")
+            if not err <= tols[-1]:
+                raise AssertionError(f"{key} {name}: max abs err {err:.3g} > {tols[-1]:.3g}")
+        flops = 5 * 4 * b * h * s * s * d  # S, dV, dP, dK, dQ: 2*S*S*d each
+        n_bytes = 8 * q.numel() * q.element_size() + lse.numel() * 4
+        return record(
+            key, "encoder_attention_bwd", src, rep, torch.cat([x.flatten() for x in got]),
+            torch.cat([x.flatten() for x in ref]), max(tols),
+            time_ms(lambda: EA.encoder_attention_backward(q, k, v, out, lse, dout), torch,
+                    flush=flush),
+            time_ms(lambda: EA.attention_backward_plain(q, k, v, dout), torch, iters=3,
+                    flush=flush),
+            bound_ms(n_bytes, flops, dtype_kind), lib)
+
+    # bf16 [8, 1500, 20, 64], unit-variance q/k/v/dO: scores of std 1, so P
+    # is diffuse (~1/1500); the gradients reach ~1. Both sides round P (and
+    # the kernel dS, the plain dP) to bf16 before the products and the
+    # results to bf16 from fp32 sums taken in another order: tolerance two
+    # bf16 ulps at each gradient's largest |plain| (7.8e-3 below 1). Then
+    # peaked (q x 4, v / 4: a few keys carry each row, so a mis-weighted key
+    # tile moves gradients by O(their size), which reach ~10) under the
+    # same rule. The library yardstick is SDPA's backward through autograd
+    # at the same shapes.
+    bf = torch.bfloat16
+    q, k, v, dout = (torch.randn((FINETUNE_BATCH, T, 20, D), generator=g, device=dev).to(bf)
+                     for _ in range(4))
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    o_sdpa = F.scaled_dot_product_attention(qt, kt, vt)
+    do_t = dout.transpose(1, 2)
+    lib = time_ms(lambda: torch.autograd.grad(o_sdpa, (qt, kt, vt), do_t, retain_graph=True),
+                  torch, flush=flush)
+    entries["encoder_attention_bwd"] = case("encoder_attention_bwd[bf16]", q, k, v, dout,
+                                            None, lib, "bf16")
+    del qt, kt, vt, o_sdpa, do_t
+    q4, v4 = (q.float() * 4).to(bf), (v.float() / 4).to(bf)
+    case("encoder_attention_bwd[bf16,peaked]", q4, k, v4, dout, None, None, "bf16")
+    del q, k, v, dout, q4, v4
+    # fp32 [4, 1500, 8, 64] (the SIMT kernels of the agree phase's fp32
+    # policy): fp32 throughout, only the summation order differs, gradients
+    # < 1: tolerance 1e-5.
+    q, k, v, dout = (torch.randn((AGREE_BATCH, T, 8, D), generator=g, device=dev)
+                     for _ in range(4))
+    case("encoder_attention_bwd[fp32,agree]", q, k, v, dout, 1e-5, None, "fp32")
+
+
+def layer_norm_cases(torch, entries, record, g, flush):
+    """The LayerNorm kernel (not wired into the model, as in the JAX
+    package) at the encoder's LN shape, [32 * 1500, 1280], bf16 and fp32."""
+    import torch.nn.functional as F
+
+    from taiwan_whisper_tpu_torch.ops import layer_norm as LN
+
+    dev = flush.device
+    n, d = LARGE_V2_BATCH * 1500, 1280
+    # x ~ 3 N(0,1) + 1, scale 1 + 0.1 N(0,1), bias 0.1 N(0,1): outputs within
+    # ~6. bf16 tolerance 3.2e-2, one bf16 ulp at [4, 8): both sides compute
+    # the same fp32 value up to summation order and round it once.
+    # fp32 tolerance 1e-5: only the summation order differs.
+    for dtype, tol in ((torch.bfloat16, 3.2e-2), (torch.float32, 1e-5)):
+        x = (torch.randn((n, d), generator=g, device=dev) * 3 + 1).to(dtype)
+        scale = 1 + 0.1 * torch.randn(d, generator=g, device=dev)
+        bias = 0.1 * torch.randn(d, generator=g, device=dev)
+        sc, bi = scale.to(dtype), bias.to(dtype)
+        kind = "bf16" if dtype == torch.bfloat16 else "fp32"
+        row = record(
+            f"layer_norm[{kind}]", "layer_norm", "taiwan_whisper_tpu_torch/csrc/layer_norm.cu",
+            "taiwan_whisper_tpu/ops/layer_norm.py:52",
+            LN.layer_norm(x, scale, bias), LN.layer_norm_plain(x, scale, bias), tol,
+            time_ms(lambda: LN.layer_norm(x, scale, bias), torch, iters=20, flush=flush),
+            time_ms(lambda: LN.layer_norm_plain(x, scale, bias), torch, flush=flush),
+            bound_ms(2 * x.numel() * x.element_size() + 2 * d * x.element_size(),
+                     8 * x.numel(), kind),
+            time_ms(lambda: F.layer_norm(x, (d,), sc, bi, 1e-5), torch, iters=20, flush=flush))
+        if dtype == torch.bfloat16:
+            entries["layer_norm"] = row
+        del x
 
 
 def _synth_wavs(out_dir: str, n: int, seconds: float, seed: int):
@@ -294,36 +473,37 @@ def _synth_wavs(out_dir: str, n: int, seconds: float, seed: int):
     return paths
 
 
-def phase_label(torch, entries: dict, results: dict):
-    from taiwan_whisper_tpu_torch import cli, get_config
-    from taiwan_whisper_tpu_torch.audio.manifest import Manifest, write_manifest
+def write_large_v2(tmp: str, torch) -> str:
+    """Random bf16 large-v2 weights from seed 0 as an HF checkpoint dir."""
+    from taiwan_whisper_tpu_torch import get_config
     from taiwan_whisper_tpu_torch.models.io import save_hf_checkpoint
     from taiwan_whisper_tpu_torch.models.params import init_params, num_params
-    from taiwan_whisper_tpu_torch.ops import attention, decode_attention, mel_kernel
+
+    t0 = time.perf_counter()
+    cfg = get_config("large-v2")
+    params = init_params(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+    model_dir = os.path.join(tmp, "large-v2")
+    save_hf_checkpoint(model_dir, params, cfg)
+    log(f"[setup] large-v2 bf16 checkpoint ({num_params(params) / 1e9:.3f} B params) "
+        f"written in {time.perf_counter() - t0:.1f} s")
+    del params
+    torch.cuda.empty_cache()
+    return model_dir
+
+
+def phase_label(torch, entries: dict, results: dict, model_dir: str):
+    from taiwan_whisper_tpu_torch import cli, get_config
+    from taiwan_whisper_tpu_torch.audio.manifest import Manifest, write_manifest
 
     cfg = get_config("large-v2")
-    counters = {"mel": mel_kernel.log10_mel_spectrum,
-                "encoder_attention": attention.encoder_attention,
-                "cross_decode_attention": decode_attention.cross_attention,
-                "self_decode_attention": decode_attention.self_attention}
     with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        params = init_params(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
-        model_dir = os.path.join(tmp, "model")
-        save_hf_checkpoint(model_dir, params, cfg)
         audio_dir = os.path.join(tmp, "audio")
         os.makedirs(audio_dir)
         names = _synth_wavs(audio_dir, LABEL_FILES, LABEL_SECONDS, seed=0)
         manifest = os.path.join(tmp, "manifest.tsv")
         write_manifest(manifest, Manifest(root=audio_dir, paths=names))
-        log(f"[label] large-v2 bf16 checkpoint ({num_params(params) / 1e9:.3f} B "
-            f"params) + {LABEL_FILES} x {LABEL_SECONDS:.0f} s WAVs written in "
-            f"{time.perf_counter() - t0:.1f} s")
-
-        del params
         out_dir = os.path.join(tmp, "labels")
-        for fn in counters.values():
-            fn.launches = 0
+        zero_counters()
         t0 = time.perf_counter()
         stats = cli.main([
             "label", "--manifest", manifest, "--model", model_dir, "--output_dir", out_dir,
@@ -331,7 +511,7 @@ def phase_label(torch, entries: dict, results: dict):
             "--vad_mode", "off", "--max_decode_tokens", str(MAX_DECODE_TOKENS)])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {k: fn.launches for k, fn in counters.items()}
+        launches = read_counters()
         csvs = sorted(n for n in os.listdir(out_dir) if n.endswith(".csv"))
         rows = 0
         for n in csvs:
@@ -339,8 +519,10 @@ def phase_label(torch, entries: dict, results: dict):
                 rows += sum(1 for _ in f) - 1
     batches = stats["batches"]
     expected = {"mel": batches, "encoder_attention": batches * cfg.encoder_layers,
+                "encoder_attention_bwd": 0,
                 "cross_decode_attention": batches * cfg.decoder_layers * (1 + MAX_DECODE_TOKENS),
-                "self_decode_attention": batches * cfg.decoder_layers * MAX_DECODE_TOKENS}
+                "self_decode_attention": batches * cfg.decoder_layers * MAX_DECODE_TOKENS,
+                "layer_norm": 0}
     rate = stats["audio_seconds"] / stats["wall_seconds"]
     log(f"[label] {stats['files']} files, {stats['chunks']} chunks, {batches} batches: "
         f"{rate:.2f} audio-s/s (label_files wall {stats['wall_seconds']:.2f} s, cli wall "
@@ -351,11 +533,191 @@ def phase_label(torch, entries: dict, results: dict):
         raise AssertionError(f"label run incomplete: {stats}")
     if launches != expected:
         raise AssertionError(f"launch counts {launches} != expected {expected}")
-    for k, n in launches.items():
-        entries.setdefault(k, {})["launches"] = n
+    add_launches(entries, results, "label", launches)
     results["label"] = dict(audio_s_per_s=rate, wall_seconds=stats["wall_seconds"],
                             cli_wall_seconds=wall, chunks=stats["chunks"], batches=batches,
                             csvs=len(csvs), segment_rows=rows)
+
+
+def _segment_corpus(root: str, copies: int):
+    """One synthetic 30 s WAV segment and its 2-line transcript (zh/en text
+    with no timestamps and no prompt, so no random draw changes its labels)
+    listed ``copies`` times, plus a byte-level vocab: every batch is the
+    same batch. Returns (manifest path, tokenizer dir)."""
+    from taiwan_whisper_tpu_torch.audio.io import write_wav
+    from taiwan_whisper_tpu_torch.audio.manifest import Manifest, write_manifest
+    from taiwan_whisper_tpu_torch.text.tokenizer import bytes_to_unicode
+
+    seg_dir, tok_dir = os.path.join(root, "segments"), os.path.join(root, "tok")
+    os.makedirs(seg_dir)
+    os.makedirs(tok_dir)
+    rng = np.random.RandomState(3)
+    t = np.arange(30 * 16000) / 16000
+    write_wav(os.path.join(seg_dir, "seg.wav"),
+              (rng.randn(len(t)) * 0.2 * (0.6 + 0.4 * np.sin(2 * np.pi * 3 * t))
+               ).astype(np.float32))
+    with open(os.path.join(seg_dir, "seg.txt"), "w", encoding="utf-8") as f:
+        f.write("今天我們來測試語音模型 hello world, this is a code-switching test "
+                "中英混合的句子<|endoftext|>\n\n")
+    manifest = os.path.join(root, "train.tsv")
+    write_manifest(manifest, Manifest(root=seg_dir, paths=["seg.wav"] * copies))
+    with open(os.path.join(tok_dir, "vocab.json"), "w", encoding="utf-8") as f:
+        json.dump({ch: i for i, ch in enumerate(bytes_to_unicode().values())}, f)
+    with open(os.path.join(tok_dir, "merges.txt"), "w", encoding="utf-8") as f:
+        f.write("#version: 0.2\n")
+    return manifest, tok_dir
+
+
+def _train_run(torch, entries, results, name, argv, out_dir, steps, batch, expected):
+    """One ``cli distill``/``cli finetune`` run with its launch counters
+    zeroed just before and read just after; step rate from the per-step
+    log lines (each waits for its step), peak device memory."""
+    from taiwan_whisper_tpu_torch import cli
+
+    zero_counters()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    metrics = cli.main(argv + ["--output_dir", out_dir, "--max_steps", str(steps),
+                               "--batch_size", str(batch), "--logging_steps", "1"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counters()
+    peak = torch.cuda.max_memory_allocated()
+    with open(os.path.join(out_dir, "metrics.jsonl"), encoding="utf-8") as f:
+        logged = [json.loads(line) for line in f if '"train/loss"' in line]
+    exported = os.path.exists(os.path.join(out_dir, "hf_export", "model.safetensors"))
+    shutil.rmtree(out_dir)
+    losses = [r["train/loss"] for r in logged]
+    times = [r["time"] for r in logged]
+    # the first step builds cuBLAS plans and the like: rate over the rest
+    steps_per_s = (len(times) - 1) / (times[-1] - times[0])
+    res = dict(batch=batch, steps=steps, losses=losses, steps_per_s=steps_per_s,
+               samples_per_s=steps_per_s * batch, peak_bytes=peak, cli_wall_s=wall,
+               final=metrics)
+    log(f"[train] {name}: batch {batch}, {steps} steps, losses "
+        f"{[round(x, 4) for x in losses]}, {steps_per_s:.3f} steps/s = "
+        f"{steps_per_s * batch:.2f} samples/s (steps 2-{steps}), peak "
+        f"{peak / 1e9:.2f} GB, cli wall {wall:.1f} s")
+    log(f"[train] {name} launches {json.dumps(launches)} expected {json.dumps(expected)}")
+    if len(losses) != steps or not all(np.isfinite(losses)) or not exported:
+        raise AssertionError(f"{name}: incomplete run: {losses}, hf_export {exported}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{name}: the loss did not fall on a repeated batch: {losses}")
+    if launches != expected:
+        raise AssertionError(f"{name}: launch counts {launches} != expected {expected}")
+    add_launches(entries, results, name, launches)
+    results.setdefault("train", {})[name] = res
+    return res
+
+
+def phase_train(torch, entries: dict, results: dict, model_dir: str):
+    from taiwan_whisper_tpu_torch import cli, get_config
+
+    cfg = get_config("large-v2")
+    none = {k: 0 for k in kernel_counters()}
+    with tempfile.TemporaryDirectory() as tmp:
+        manifest, tok_dir = _segment_corpus(tmp, 2 * LARGE_V2_BATCH)
+        student_dir = os.path.join(tmp, "student-32-2")
+        t0 = time.perf_counter()
+        cli.main(["init-student", "--teacher", model_dir, "--out", student_dir,
+                  "--decoder_layers", "2"])
+        log(f"[train] init-student 32-2 in {time.perf_counter() - t0:.1f} s")
+        # configs/distill_32_2.args semantics; one warmup step (lr 0), then
+        # the shipped lr, so the loss of a repeated batch must fall
+        distill = ["distill", "--manifest", manifest, "--teacher", model_dir,
+                   "--student", student_dir, "--learning_rate", "1e-4",
+                   "--warmup_steps", "1", "--lr_schedule", "constant_with_warmup",
+                   "--ce_weight", "0.8", "--kl_weight", "1.0", "--temperature", "2.0",
+                   "--language", "zh", "--tokenizer_dir", tok_dir]
+
+        def distill_expected(steps):
+            return dict(none, mel=steps, encoder_attention=cfg.encoder_layers * steps)
+
+        res = _train_run(torch, entries, results, "distill", distill,
+                         os.path.join(tmp, "distill"), DISTILL_STEPS, LARGE_V2_BATCH,
+                         distill_expected(DISTILL_STEPS))
+        # the shipped batch of 64, if twice the batch-32 peak fits the card
+        if 2 * res["peak_bytes"] <= CARD_BYTES:
+            _train_run(torch, entries, results, "distill_b64", distill,
+                       os.path.join(tmp, "distill64"), 3, 2 * LARGE_V2_BATCH,
+                       distill_expected(3))
+        else:
+            log(f"[train] distill at batch 64 not run: twice the batch-32 peak, "
+                f"{2 * res['peak_bytes'] / 1e9:.1f} GB, exceeds {CARD_BYTES / 1e9:.0f} GB")
+            results["train"]["distill_b64"] = "not run: would not fit"
+        # finetune with the encoder trainable: each checkpointed encoder
+        # layer runs its forward twice and its backward once per step
+        finetune = ["finetune", "--manifest", manifest, "--model", student_dir,
+                    "--warmup_steps", "1", "--language", "zh", "--tokenizer_dir", tok_dir]
+        _train_run(torch, entries, results, "finetune", finetune,
+                   os.path.join(tmp, "finetune"), FINETUNE_STEPS, FINETUNE_BATCH,
+                   dict(none, mel=FINETUNE_STEPS,
+                        encoder_attention=2 * cfg.encoder_layers * FINETUNE_STEPS,
+                        encoder_attention_bwd=cfg.encoder_layers * FINETUNE_STEPS))
+
+
+def phase_train_agree(torch, results: dict):
+    """Three fp32 train steps with the encoder trainable, on the card and
+    on the CPU: the card's fp32 kernels (forward with LSE, SIMT backward)
+    against the plain path under autograd."""
+    from taiwan_whisper_tpu_torch import DtypePolicy, WhisperConfig
+    from taiwan_whisper_tpu_torch.models.config import resolve_device
+    from taiwan_whisper_tpu_torch.models.params import (init_params, init_student_from_teacher,
+                                                        map_params, named_leaves)
+    from taiwan_whisper_tpu_torch.train.distill import DistillConfig, make_train_step
+    from taiwan_whisper_tpu_torch.train.state import OptimConfig, make_optimizer, trainable_mask
+
+    resolve_device("cuda")  # TF32 off for the fp32 policy
+    cfg = WhisperConfig(vocab_size=512, num_mel_bins=80, d_model=256, ffn_dim=1024,
+                        encoder_layers=2, decoder_layers=2, encoder_attention_heads=4,
+                        decoder_attention_heads=4, max_source_positions=300,
+                        max_target_positions=32)
+    scfg = cfg.with_decoder_layers(1)
+    teacher = init_params(cfg, seed=2)
+    student = init_student_from_teacher(teacher, cfg, 1)
+    rng = np.random.RandomState(2)
+    batches = []
+    for _ in range(3):
+        labels = rng.randint(0, 512, (AGREE_BATCH, 16)).astype(np.int32)
+        labels[:, :3] = -100
+        batches.append({"mel": rng.randn(AGREE_BATCH, 600, 80).astype(np.float32),
+                        "decoder_input_ids": rng.randint(0, 512, (AGREE_BATCH, 16)
+                                                         ).astype(np.int32),
+                        "labels": labels})
+    out = {}
+    for dev in ("cuda", "cpu"):
+        params = map_params(lambda _, t: t.to(dev, copy=True), student)
+        tparams = map_params(lambda _, t: t.to(dev, copy=True), teacher)
+        opt = make_optimizer(OptimConfig(learning_rate=1e-3, warmup_steps=2),
+                             mask=trainable_mask(params, False))
+        step = make_train_step(scfg, cfg, DistillConfig(freeze_encoder=False), opt,
+                               DtypePolicy.fp32())
+        state = opt.init(params)
+        zero_counters()
+        losses = []
+        for b in batches:
+            params, state, m = step(params, state, tparams,
+                                    {k: torch.from_numpy(v).to(dev) for k, v in b.items()})
+            losses.append(float(m["loss"]))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launches = read_counters()
+        out[dev] = (losses, dict(named_leaves(params)))
+    expected = {k: 0 for k in kernel_counters()}
+    expected.update(encoder_attention=2 * cfg.encoder_layers * 3,
+                    encoder_attention_bwd=cfg.encoder_layers * 3)
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(out["cuda"][0], out["cpu"][0]))
+    param_err = max(max_abs(out["cuda"][1][p].cpu(), t) for p, t in out["cpu"][1].items())
+    log(f"[train_agree] losses card {out['cuda'][0]} cpu {out['cpu'][0]}: max rel diff "
+        f"{loss_rel:.3g} (tol 1e-4); params max abs diff {param_err:.3g} (tol 1e-5)")
+    log(f"[train_agree] launches {json.dumps(launches)} expected {json.dumps(expected)}")
+    if not (loss_rel <= 1e-4 and param_err <= 1e-5):
+        raise AssertionError(f"card-vs-CPU train steps disagree: loss {loss_rel:.3g}, "
+                             f"params {param_err:.3g}")
+    if launches != expected:
+        raise AssertionError(f"train_agree launch counts {launches} != expected {expected}")
+    results["train_agree"] = dict(loss_rel_diff=loss_rel, param_max_abs_diff=param_err,
+                                  launches=launches)
 
 
 def phase_agree(torch, results: dict):
@@ -366,7 +728,7 @@ def phase_agree(torch, results: dict):
     from taiwan_whisper_tpu_torch.models import whisper as M
     from taiwan_whisper_tpu_torch.models.config import resolve_device
     from taiwan_whisper_tpu_torch.models.params import init_params, prepare_params
-    from taiwan_whisper_tpu_torch.ops import attention, decode_attention, mel_kernel
+    from taiwan_whisper_tpu_torch.ops import mel_kernel
     from taiwan_whisper_tpu_torch.text.tokenizer import WhisperTokenizer
 
     resolve_device("cuda")  # TF32 off for the fp32 policy
@@ -378,32 +740,27 @@ def phase_agree(torch, results: dict):
     rng = np.random.RandomState(1)
     audio = torch.from_numpy((rng.randn(AGREE_BATCH, N_SAMPLES) * 0.1).astype(np.float32))
     prefix = torch.tensor([sot] * AGREE_BATCH, dtype=torch.int32)
-    counters = {"mel": mel_kernel.log10_mel_spectrum,
-                "encoder_attention": attention.encoder_attention,
-                "cross_decode_attention": decode_attention.cross_attention,
-                "self_decode_attention": decode_attention.self_attention}
     out = {}
     for dev in ("cuda", "cpu"):
         params = prepare_params(weights, pol, dev)
         if dev == "cuda":
-            for fn in counters.values():
-                fn.launches = 0
+            zero_counters()
         with torch.inference_mode():
             enc = M.encode(params, mel_kernel.log_mel(audio.to(dev)), cfg, pol)
         res = greedy_decode(params, enc, prefix, cfg, rules, pol,
                             max_len=len(sot) + AGREE_TOKENS, device=dev)
         if dev == "cuda":
             torch.cuda.synchronize()
-            launches = {k: fn.launches for k, fn in counters.items()}
+            launches = read_counters()
         out[dev] = res.tokens[:, len(sot):].cpu().numpy()
     # Steps the card's loop ran: every row has emitted eot after step
     # `done`, and the loop polls for that every 8 steps (decode/greedy.py).
     eot_at = [np.flatnonzero(row == rules.eot) for row in out["cuda"]]
     done = max((e[0] if len(e) else AGREE_TOKENS) for e in eot_at)
     steps = min(AGREE_TOKENS, -(-(done + 1) // 8) * 8)
-    expected = {"mel": 1, "encoder_attention": cfg.encoder_layers,
+    expected = {"mel": 1, "encoder_attention": cfg.encoder_layers, "encoder_attention_bwd": 0,
                 "cross_decode_attention": cfg.decoder_layers * (1 + steps),
-                "self_decode_attention": cfg.decoder_layers * steps}
+                "self_decode_attention": cfg.decoder_layers * steps, "layer_norm": 0}
     log(f"[agree] launches {json.dumps(launches)} expected {json.dumps(expected)}")
     if launches != expected:
         raise AssertionError(f"agree launch counts {launches} != expected {expected}")
@@ -434,7 +791,7 @@ def main(argv) -> int:
     except ImportError as e:
         print(f"chip_smoke: run from the repository root ({e})", file=sys.stderr)
         return 2
-    phases = argv or ["kernels", "label", "agree"]
+    phases = argv or ["kernels", "label", "train", "train_agree", "agree"]
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -446,8 +803,15 @@ def main(argv) -> int:
     if "kernels" in phases:
         phase_kernels(torch, entries, checks)
         log("checks " + json.dumps({"checks": checks}))
-    if "label" in phases:
-        phase_label(torch, entries, results)
+    with tempfile.TemporaryDirectory() as tmp:
+        model_dir = (write_large_v2(tmp, torch)
+                     if {"label", "train"} & set(phases) else None)
+        if "label" in phases:
+            phase_label(torch, entries, results, model_dir)
+        if "train" in phases:
+            phase_train(torch, entries, results, model_dir)
+    if "train_agree" in phases:
+        phase_train_agree(torch, results)
     if "agree" in phases:
         phase_agree(torch, results)
     log("results " + json.dumps(results))

@@ -1,6 +1,12 @@
-"""fairseq-style TSV manifest (port of taiwan_whisper_tpu/audio/manifest.py):
-the first line is the root dir, following lines are relative audio paths,
-optionally "\\t<num_frames>"."""
+"""Manifest and segment-file formats (port of taiwan_whisper_tpu/audio/manifest.py).
+
+* fairseq-style TSV manifest: the first line is the root dir, following
+  lines are relative audio paths, optionally "\\t<num_frames>".
+* per-segment transcript txt beside each audio file, in either of two
+  schemas: 2 lines (transcript / prev-transcript, what the segmenter
+  writes) or 5 lines (transcript / blank / end-segment transcript / blank /
+  prev). ``read_segment_txt`` reads both into one ``SegmentText``.
+"""
 
 from __future__ import annotations
 
@@ -20,6 +26,11 @@ class Manifest:
 
     def absolute_paths(self) -> List[str]:
         return [os.path.join(self.root, p) for p in self.paths]
+
+    def transcript_paths(self) -> List[str]:
+        """The segment txt beside each audio file (extension replaced)."""
+        return [os.path.join(self.root, os.path.splitext(p)[0] + ".txt")
+                for p in self.paths]
 
 
 def read_manifest(path: str) -> Manifest:
@@ -51,3 +62,31 @@ def write_manifest(path: str, manifest: Manifest):
                 print(f"{p}\t{manifest.frames[i]}", file=f)
             else:
                 print(p, file=f)
+
+
+@dataclasses.dataclass
+class SegmentText:
+    """One 30 s segment's transcript record.
+
+    transcript: timestamp-token text, ends with <|endoftext|> (and possibly
+        <|continued|> before it when the last utterance spans the boundary)
+    prev_transcript: previous segment's transcript (prompt source)
+    end_transcript: text of the last (possibly continued) utterance; only
+        the 5-line schema has it
+    """
+
+    transcript: str
+    prev_transcript: str = ""
+    end_transcript: str = ""
+
+
+def read_segment_txt(path: str) -> SegmentText:
+    """Read either schema, keyed on line count."""
+    with open(path, encoding="utf-8") as f:
+        lines = [line.rstrip("\n") for line in f.readlines()]
+    if len(lines) >= 5:
+        return SegmentText(transcript=lines[0].strip(),
+                           end_transcript=lines[2].strip(),
+                           prev_transcript=lines[4].strip())
+    return SegmentText(transcript=lines[0].strip() if lines else "",
+                       prev_transcript=lines[1].strip() if len(lines) > 1 else "")

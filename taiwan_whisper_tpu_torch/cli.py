@@ -2,17 +2,26 @@
 
     python -m taiwan_whisper_tpu_torch.cli label --manifest ... --model ... \\
         --output_dir ... [--device cuda|cpu]
+    python -m taiwan_whisper_tpu_torch.cli init-student --teacher ... --out ...
+    python -m taiwan_whisper_tpu_torch.cli distill --manifest ... --teacher ... \\
+        --output_dir ... [--device cuda|cpu]
+    python -m taiwan_whisper_tpu_torch.cli finetune --manifest ... --model ... \\
+        --output_dir ... [--freeze_encoder] [--device cuda|cpu]
 
-``label`` takes the JAX CLI's flags (taiwan_whisper_tpu/cli.py) plus
-``--device``; options this slice does not run yet (spectral/energy VAD,
-beam search, speculative decoding, the resident transport) raise
-NotImplementedError. The other subcommands wait for later slices.
+Each subcommand takes the JAX CLI's flags and defaults
+(taiwan_whisper_tpu/cli.py) plus ``--device``; ``distill`` and ``finetune``
+also take ``--compute_dtype`` (bf16, the JAX CLI's policy, or fp32) and
+``--logging_steps``. Options this slice does not run yet raise
+NotImplementedError naming their ROADMAP item. The other subcommands wait
+for later slices.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+
+_UNPORTED = "wait(s) for a later slice of the port (ROADMAP Queue A 9)"
 
 
 def _quant_arg(v: str):
@@ -63,6 +72,126 @@ def cmd_label(args):
     return stats
 
 
+def _policy(name: str):
+    from .models.config import DtypePolicy
+
+    return DtypePolicy.fp32() if name == "fp32" else DtypePolicy.bf16()
+
+
+def _check_train_args(args):
+    if args.distributed:
+        raise NotImplementedError(f"--distributed {_UNPORTED}")
+
+
+def cmd_distill(args):
+    from .pipeline.dataset import TrainPrepConfig
+    from .pipeline.distill_driver import DistillRunConfig, run_distillation
+    from .train.distill import DistillConfig
+    from .train.state import OptimConfig
+
+    _check_train_args(args)
+    metrics = run_distillation(
+        args.manifest, args.teacher, args.output_dir,
+        student_dir=args.student,
+        student_decoder_layers=args.student_decoder_layers,
+        student_encoder_layers=args.student_encoder_layers,
+        run_cfg=DistillRunConfig(
+            max_steps=args.max_steps, batch_size=args.batch_size,
+            model_parallel=args.model_parallel, save_steps=args.save_steps,
+            eval_steps=args.eval_steps, logging_steps=args.logging_steps,
+            use_wandb=args.wandb, gen_eval_batches=args.gen_eval_batches,
+        ),
+        dcfg=DistillConfig(
+            ce_weight=args.ce_weight, kl_weight=args.kl_weight,
+            temperature=args.temperature, mse_weight=args.mse_weight,
+        ),
+        opt_cfg=OptimConfig(
+            learning_rate=args.learning_rate, warmup_steps=args.warmup_steps,
+            total_steps=args.max_steps, schedule=args.lr_schedule,
+        ),
+        prep_cfg=TrainPrepConfig(
+            language=args.language,
+            timestamp_probability=args.timestamp_probability,
+            condition_on_prev_probability=args.condition_on_prev_probability,
+        ),
+        tokenizer_dir=args.tokenizer_dir,
+        eval_manifest_path=args.eval_manifest,
+        policy=_policy(args.compute_dtype),
+        device=args.device,
+    )
+    print(json.dumps(metrics))
+    return metrics
+
+
+def cmd_finetune(args):
+    from .pipeline.dataset import TrainPrepConfig
+    from .pipeline.distill_driver import DistillRunConfig, run_finetuning
+    from .train.state import OptimConfig
+
+    _check_train_args(args)
+    metrics = run_finetuning(
+        args.manifest, args.model, args.output_dir,
+        freeze_encoder=args.freeze_encoder,
+        run_cfg=DistillRunConfig(
+            max_steps=args.max_steps, batch_size=args.batch_size,
+            model_parallel=args.model_parallel, save_steps=args.save_steps,
+            eval_steps=args.eval_steps, logging_steps=args.logging_steps,
+            mix_lang_embeddings=False,
+        ),
+        opt_cfg=OptimConfig(
+            learning_rate=args.learning_rate, warmup_steps=args.warmup_steps,
+            total_steps=args.max_steps,
+        ),
+        prep_cfg=TrainPrepConfig(language=args.language),
+        tokenizer_dir=args.tokenizer_dir,
+        eval_manifest_path=args.eval_manifest,
+        policy=_policy(args.compute_dtype),
+        device=args.device,
+    )
+    print(json.dumps(metrics))
+    return metrics
+
+
+def cmd_init_student(args):
+    """Maximally-spaced student from a teacher checkpoint, written in fp32
+    as the JAX package writes it; the slicing and mixing run on --device."""
+    import torch
+
+    from .models.config import resolve_device
+    from .models.io import load_model, save_hf_checkpoint
+    from .models.params import (init_student_from_teacher, map_params,
+                                mix_language_embeddings)
+    from .text.tokenizer import MULTILINGUAL
+
+    dev = resolve_device(args.device)
+    teacher, tcfg = load_model(args.teacher)
+    teacher = map_params(lambda _, t: t.to(device=dev, dtype=torch.float32), teacher)
+    if args.mix_lang_emb:
+        zh, en = MULTILINGUAL.language_id("zh"), MULTILINGUAL.language_id("en")
+        teacher = mix_language_embeddings(teacher, zh, [zh, en])
+    layers = ([int(x) for x in args.decoder_layers_numbers.split(",")]
+              if args.decoder_layers_numbers else None)
+    student = init_student_from_teacher(teacher, tcfg, args.decoder_layers, layers,
+                                        encoder_layers=args.encoder_layers)
+    scfg = tcfg.with_decoder_layers(args.decoder_layers)
+    if args.encoder_layers is not None:
+        scfg = scfg.with_encoder_layers(args.encoder_layers)
+    save_hf_checkpoint(args.out, student, scfg)
+    print(f"[init-student] wrote {args.out}")
+
+
+def _add_train_common(p: argparse.ArgumentParser):
+    p.add_argument("--tokenizer_dir", default=None,
+                   help="dir with vocab.json/merges.txt (optional)")
+    p.add_argument("--distributed", action="store_true")
+    p.add_argument("--device", default=None,
+                   help="torch device to run on (default cuda; 'cpu' runs the "
+                        "plain PyTorch path)")
+    p.add_argument("--compute_dtype", default="bf16", choices=["bf16", "fp32"],
+                   help="compute dtype over the fp32 master weights")
+    p.add_argument("--logging_steps", type=int, default=25)
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="taiwan_whisper_tpu_torch",
                                  fromfile_prefix_chars="@")
@@ -102,6 +231,65 @@ def build_parser() -> argparse.ArgumentParser:
                    help="torch device to run on (default cuda; 'cpu' runs the "
                         "plain PyTorch path)")
     p.set_defaults(fn=cmd_label)
+
+    p = sub.add_parser("distill", help="stage 3: knowledge distillation")
+    p.add_argument("--manifest", required=True)
+    p.add_argument("--teacher", required=True)
+    p.add_argument("--output_dir", required=True)
+    p.add_argument("--student", default=None)
+    p.add_argument("--student_decoder_layers", type=int, default=2)
+    p.add_argument("--student_encoder_layers", type=int, default=None,
+                   help="slice the teacher encoder to N max-spaced layers")
+    p.add_argument("--max_steps", type=int, default=120_000)
+    p.add_argument("--batch_size", type=int, default=32)
+    p.add_argument("--model_parallel", type=int, default=1)
+    p.add_argument("--save_steps", type=int, default=1000)
+    p.add_argument("--eval_steps", type=int, default=1000)
+    p.add_argument("--learning_rate", type=float, default=1e-4)
+    p.add_argument("--warmup_steps", type=int, default=50)
+    p.add_argument("--lr_schedule", default="constant_with_warmup")
+    p.add_argument("--ce_weight", type=float, default=0.8)
+    p.add_argument("--kl_weight", type=float, default=1.0)
+    p.add_argument("--temperature", type=float, default=2.0)
+    p.add_argument("--mse_weight", type=float, default=0.0)
+    p.add_argument("--language", default="zh")
+    p.add_argument("--timestamp_probability", type=float, default=0.2)
+    p.add_argument("--condition_on_prev_probability", type=float, default=0.2)
+    p.add_argument("--wandb", action="store_true")
+    p.add_argument("--eval_manifest", default=None)
+    p.add_argument("--gen_eval_batches", type=int, default=0)
+    _add_train_common(p)
+    p.set_defaults(fn=cmd_distill)
+
+    p = sub.add_parser("finetune", help="CE-only seq2seq fine-tuning")
+    p.add_argument("--manifest", required=True)
+    p.add_argument("--model", required=True)
+    p.add_argument("--output_dir", required=True)
+    p.add_argument("--max_steps", type=int, default=10_000)
+    p.add_argument("--batch_size", type=int, default=32)
+    p.add_argument("--model_parallel", type=int, default=1)
+    p.add_argument("--save_steps", type=int, default=1000)
+    p.add_argument("--eval_steps", type=int, default=1000)
+    p.add_argument("--learning_rate", type=float, default=1e-5)
+    p.add_argument("--warmup_steps", type=int, default=50)
+    p.add_argument("--freeze_encoder", action="store_true")
+    p.add_argument("--language", default="zh")
+    p.add_argument("--eval_manifest", default=None)
+    _add_train_common(p)
+    p.set_defaults(fn=cmd_finetune)
+
+    p = sub.add_parser("init-student", help="maximally-spaced student init")
+    p.add_argument("--teacher", required=True)
+    p.add_argument("--out", required=True)
+    p.add_argument("--decoder_layers", type=int, default=2)
+    p.add_argument("--decoder_layers_numbers", default=None,
+                   help="comma-separated explicit teacher layer indices")
+    p.add_argument("--encoder_layers", type=int, default=None,
+                   help="slice the encoder to N max-spaced teacher layers")
+    p.add_argument("--mix_lang_emb", action="store_true")
+    p.add_argument("--device", default=None,
+                   help="torch device to run on (default cuda; 'cpu' runs on the CPU)")
+    p.set_defaults(fn=cmd_init_student)
     return ap
 
 

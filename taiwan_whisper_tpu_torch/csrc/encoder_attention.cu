@@ -21,6 +21,11 @@
 //
 // fp32 variant: a plain SIMT flash loop (one thread per query row) so the
 // fp32 policy runs on the card too; it serves parity checks, not speed.
+//
+// Both variants optionally write the per-row log-sum-exp of the scaled
+// scores (natural log, fp32 [B, H, S]) that the backward
+// (encoder_attention_bwd.cu) recomputes the probabilities from; a null
+// pointer skips it (inference and the frozen encoder).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -33,6 +38,7 @@ constexpr int D = 64;        // head dim
 constexpr int BQ = 64;       // query rows per block (4 warps x 16)
 constexpr int BK = 64;       // keys per tile
 constexpr int LDS = BK + 8;  // padded shared row (bf16), conflict-free fragment reads
+constexpr float LN2 = 0.6931471805599453f;
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -53,7 +59,7 @@ __global__ void __launch_bounds__(128)
 enc_attn_bf16(const __nv_bfloat16* __restrict__ q, Strides qs,
               const __nv_bfloat16* __restrict__ k, Strides ks,
               const __nv_bfloat16* __restrict__ v, Strides vs,
-              __nv_bfloat16* __restrict__ o, Strides os,
+              __nv_bfloat16* __restrict__ o, Strides os, float* __restrict__ lse,
               int S, int H, float scale_log2) {
   __shared__ __align__(16) __nv_bfloat16 Ks[BK][LDS];
   __shared__ __align__(16) __nv_bfloat16 Vt[D][LDS];
@@ -171,6 +177,11 @@ enc_attn_bf16(const __nv_bfloat16* __restrict__ q, Strides qs,
     l0 += __shfl_xor_sync(0xffffffffu, l0, off);
     l1 += __shfl_xor_sync(0xffffffffu, l1, off);
   }
+  if (lse != nullptr && t4 == 0) {  // row max and sum are in log2 units
+    float* lb = lse + (long long)blockIdx.y * S;
+    if (r0 < S) lb[r0] = (m0 + log2f(l0)) * LN2;
+    if (r1 < S) lb[r1] = (m1 + log2f(l1)) * LN2;
+  }
   __nv_bfloat16* ob = o + b * os.b + h * os.h;
 #pragma unroll
   for (int n = 0; n < 8; ++n) {
@@ -189,7 +200,7 @@ __global__ void __launch_bounds__(F_ROWS)
 enc_attn_f32(const float* __restrict__ q, Strides qs,
              const float* __restrict__ k, Strides ks,
              const float* __restrict__ v, Strides vs,
-             float* __restrict__ o, Strides os,
+             float* __restrict__ o, Strides os, float* __restrict__ lse,
              int S, int H, float scale_log2) {
   __shared__ float Kt[F_KEYS][D];
   __shared__ float Vs[F_KEYS][D];
@@ -240,20 +251,21 @@ enc_attn_f32(const float* __restrict__ q, Strides qs,
     float* ob = o + b * os.b + h * os.h + row * os.s;
 #pragma unroll
     for (int d = 0; d < D; ++d) ob[d] = acc[d] / l;
+    if (lse != nullptr) lse[(long long)blockIdx.y * S + row] = (m + log2f(l)) * LN2;
   }
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Strides are in elements; the head dim
-// is contiguous and must be 64.
+// is contiguous and must be 64. lse: fp32 [B, H, S] or null.
 extern "C" int twt_encoder_attention(
     int dtype, int B, int S, int H,
     const void* q, long long qsb, long long qss, long long qsh,
     const void* k, long long ksb, long long kss, long long ksh,
     const void* v, long long vsb, long long vss, long long vsh,
     void* o, long long osb, long long oss, long long osh,
-    float scale, void* stream) {
+    float* lse, float scale, void* stream) {
   const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh}, os{osb, oss, osh};
   const float scale_log2 = scale * 1.4426950408889634f;
   cudaStream_t st = (cudaStream_t)stream;
@@ -261,12 +273,12 @@ extern "C" int twt_encoder_attention(
     dim3 grid((S + BQ - 1) / BQ, B * H);
     enc_attn_bf16<<<grid, 128, 0, st>>>(
         (const __nv_bfloat16*)q, qs, (const __nv_bfloat16*)k, ks,
-        (const __nv_bfloat16*)v, vs, (__nv_bfloat16*)o, os, S, H, scale_log2);
+        (const __nv_bfloat16*)v, vs, (__nv_bfloat16*)o, os, lse, S, H, scale_log2);
   } else if (dtype == 0) {
     dim3 grid((S + F_ROWS - 1) / F_ROWS, B * H);
     enc_attn_f32<<<grid, F_ROWS, 0, st>>>(
         (const float*)q, qs, (const float*)k, ks, (const float*)v, vs,
-        (float*)o, os, S, H, scale_log2);
+        (float*)o, os, lse, S, H, scale_log2);
   } else {
     return (int)cudaErrorInvalidValue;
   }

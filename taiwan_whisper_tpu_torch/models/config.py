@@ -40,6 +40,14 @@ class WhisperConfig:
         assert self.d_model % self.encoder_attention_heads == 0
         return self.d_model // self.encoder_attention_heads
 
+    def with_decoder_layers(self, n: int) -> "WhisperConfig":
+        """Student config: the same model with a shrunk decoder."""
+        return dataclasses.replace(self, decoder_layers=n)
+
+    def with_encoder_layers(self, n: int) -> "WhisperConfig":
+        """Student config with a shrunk encoder."""
+        return dataclasses.replace(self, encoder_layers=n)
+
 
 # Canonical model family presets (dimensions of the published Whisper family).
 _PRESETS = {

@@ -18,16 +18,20 @@ carry no bias) and each LayerNorm is ``{"weight", "bias"}``.
 ``from_jax_params`` takes the JAX package's pytree (stacked layers, dense
 kernels ``[d_in, d_out]``, conv kernels ``[K, C_in, C_out]``) as numpy
 arrays; ``load_hf_state_dict`` takes HF names. ``prepare_params`` casts
-once, at load, to the policy's compute dtype on the target device:
-matmul weights and embeddings to the compute dtype, LayerNorm scale and
-bias kept fp32 (the JAX package casts per call, which XLA hoists; eager
-PyTorch would recast every weight on every decode step).
+once, at load, for inference, to the policy's compute dtype on the target
+device: matmul weights and embeddings to the compute dtype, LayerNorm
+scale and bias kept fp32 (the model casts per call, as the JAX package
+does, and the casts of prepared weights are no-ops; eager PyTorch would
+otherwise recast every weight on every decode step). Training keeps fp32
+masters and lets the model cast them inside the autograd graph.
+``init_student_from_teacher`` and ``mix_language_embeddings`` build
+students; ``map_params``/``named_leaves`` walk the tree by dotted path.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Mapping
+from typing import Any, Callable, Dict, Iterator, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -276,6 +280,96 @@ def prepare_params(params: Params, policy: DtypePolicy, device) -> Params:
         return tree.to(device=device, dtype=dtype)
 
     return walk(params)
+
+
+def map_params(fn: Callable[[str, torch.Tensor], Any], params, prefix: str = ""):
+    """The weights tree with ``fn(path, tensor)`` at every leaf; paths are
+    dotted (``decoder.layers.0.fc1.weight``)."""
+    if isinstance(params, dict):
+        return {k: map_params(fn, v, f"{prefix}{k}.") for k, v in params.items()}
+    if isinstance(params, list):
+        return [map_params(fn, v, f"{prefix}{i}.") for i, v in enumerate(params)]
+    return fn(prefix[:-1], params)
+
+
+def named_leaves(params, prefix: str = "") -> Iterator[Tuple[str, torch.Tensor]]:
+    """(dotted path, tensor) of every leaf, in the tree's order."""
+    if isinstance(params, dict):
+        for k, v in params.items():
+            yield from named_leaves(v, f"{prefix}{k}.")
+    elif isinstance(params, list):
+        for i, v in enumerate(params):
+            yield from named_leaves(v, f"{prefix}{i}.")
+    else:
+        yield prefix[:-1], params
+
+
+# ---------------------------------------------------------------------------
+# student init + language-embedding mixing
+# ---------------------------------------------------------------------------
+
+def spaced_layer_indices(n_teacher: int, n_student: int) -> List[int]:
+    """Maximally-spaced teacher-layer mapping for student init:
+    ``np.linspace(0, L-1, n)`` truncated to ints, the last forced to L-1."""
+    idx = np.linspace(0, n_teacher - 1, n_student).astype(int).tolist()
+    idx[-1] = n_teacher - 1
+    return idx
+
+
+def layers_to_supervise(n_student: int, n_teacher: int) -> List[int]:
+    """Teacher layer supervising each student layer for the MSE
+    hidden-state loss: equal increments from L//n - 1 to L-1, e.g.
+    (2, 32) -> [15, 31] (another mapping than the init one)."""
+    idx = np.linspace(n_teacher // n_student - 1, n_teacher - 1,
+                      n_student).astype(int).tolist()
+    idx[-1] = n_teacher - 1
+    return idx
+
+
+def _copy(tree):
+    return map_params(lambda _, t: t.clone(), tree)
+
+
+def init_student_from_teacher(teacher_params: Params, teacher_config: WhisperConfig,
+                              decoder_layers: int,
+                              decoder_layer_indices: Optional[List[int]] = None,
+                              encoder_layers: Optional[int] = None) -> Params:
+    """A student whose N decoder layers are copies of maximally-spaced
+    teacher decoder layers (or of ``decoder_layer_indices``), plus, when
+    ``encoder_layers`` is given, an encoder sliced the same way. Every
+    tensor is a copy."""
+    idx = decoder_layer_indices or spaced_layer_indices(
+        teacher_config.decoder_layers, decoder_layers)
+    if len(idx) != decoder_layers:
+        raise ValueError(f"{len(idx)} layer indices for {decoder_layers} decoder layers")
+    encoder = dict(teacher_params["encoder"])
+    if encoder_layers is not None and encoder_layers != teacher_config.encoder_layers:
+        eidx = spaced_layer_indices(teacher_config.encoder_layers, encoder_layers)
+        encoder["layers"] = [encoder["layers"][i] for i in eidx]
+    dec = teacher_params["decoder"]
+    return _copy({
+        "encoder": encoder,
+        "decoder": {"embed_tokens": dec["embed_tokens"],
+                    "embed_positions": dec["embed_positions"],
+                    "layers": [dec["layers"][i] for i in idx],
+                    "ln_post": dec["ln_post"]},
+    })
+
+
+def mix_language_embeddings(params: Params, target_id: int, source_ids: List[int],
+                            weights: Optional[List[float]] = None) -> Params:
+    """A copy of ``params`` whose ``target_id`` token embedding is the
+    weighted average of the ``source_ids`` embeddings (the code-switching
+    trick emb[<|zh|>] = 0.5 emb[<|zh|>] + 0.5 emb[<|en|>])."""
+    emb = params["decoder"]["embed_tokens"]
+    if weights is None:
+        weights = [1.0 / len(source_ids)] * len(source_ids)
+    mixed = sum(w * emb[i] for w, i in zip(weights, source_ids))
+    emb = emb.clone()
+    emb[target_id] = mixed
+    new = dict(params)
+    new["decoder"] = dict(params["decoder"], embed_tokens=emb)
+    return new
 
 
 def num_params(params: Params) -> int:

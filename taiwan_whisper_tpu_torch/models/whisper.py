@@ -1,22 +1,29 @@
-"""Whisper encoder-decoder inference in PyTorch (port of
-taiwan_whisper_tpu/models/whisper.py).
+"""Whisper encoder-decoder in PyTorch (port of
+taiwan_whisper_tpu/models/whisper.py): inference and training.
 
-Plain functions over the weights dict of models/params.py, prepared once
-by ``prepare_params`` (compute-dtype matmul weights, fp32 LayerNorms). The
-JAX package's layouts are kept at the public functions: encoder q/k/v
+Plain functions over the weights dict of models/params.py. Every matmul
+weight, conv weight and embedding is cast to the compute dtype where it
+is used, inside the autograd graph, as the JAX package's ``_dense`` does:
+training keeps fp32 masters and their gradients arrive in fp32. For
+inference ``prepare_params`` casts once at load, and the casts are no-ops.
+The JAX package's layouts are kept at the public functions: encoder q/k/v
 ``[B, S, H, Dh]``, the cross K/V time-minor ``[L, B, H, Dh, T]`` with
 scales ``[L, B, H, Dh, 1]``, the self cache ``[L, B, H, Dh, S]``. On CUDA
-tensors encoder self-attention, cross-attention (decode steps and
-prefill) and cached self-attention go through the port's CUDA kernels;
-on CPU tensors through their plain versions.
+tensors encoder self-attention (forward, and backward when the encoder
+trains), cross-attention (decode steps and prefill) and cached
+self-attention go through the port's CUDA kernels; on CPU tensors through
+their plain versions. ``decode_train``'s attention is plain ``torch``
+matmuls, as the JAX package leaves it to XLA.
 
 Differences from the JAX package, by design:
 * the KV cache is updated IN PLACE: each decode step writes its k/v at
   position ``index`` of layer l right after layer l's attention (JAX
   commits all layers after the layer scan; position ``index`` is masked
   during the step either way), and ``prefill`` fills ``[0, P)`` in place;
-* ``decode_train``, ``forward``, ``extend`` and the int4 / "8x8" cross-KV
-  modes wait for later slices and raise NotImplementedError.
+* ``remat`` checkpoints each layer with ``torch.utils.checkpoint`` only
+  while autograd records (under ``no_grad`` it would buy nothing);
+* ``extend`` and the int4 / "8x8" cross-KV modes wait for later slices
+  and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import attention_plain, encoder_attention
 from ..ops.decode_attention import cross_attention, self_attention
@@ -39,13 +47,14 @@ Params = Dict[str, Any]
 # ---------------------------------------------------------------------------
 
 def _dense(p: Params, x: torch.Tensor) -> torch.Tensor:
-    """y = x W^T + b with W [d_out, d_in] in the compute dtype."""
-    return F.linear(x, p["weight"], p.get("bias"))
+    """y = x W^T + b with W [d_out, d_in] cast to x's (the compute) dtype."""
+    b = p.get("bias")
+    return F.linear(x, p["weight"].to(x.dtype), None if b is None else b.to(x.dtype))
 
 
 def _layer_norm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm in fp32 regardless of the compute dtype."""
-    y = F.layer_norm(x.float(), (x.shape[-1],), p["weight"], p["bias"], eps)
+    y = F.layer_norm(x.float(), (x.shape[-1],), p["weight"].float(), p["bias"].float(), eps)
     return y.to(x.dtype)
 
 
@@ -63,60 +72,141 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(b, s, h * dh)
 
 
+class _MixedHead(torch.autograd.Function):
+    """x [N, d] (bf16) against the table [V, d] cast to x's dtype: bf16
+    operands, fp32 accumulation and fp32 logits, on the card. The backward
+    rounds the fp32 gradient to bf16 for its two products (fp32
+    accumulation again) and hands the table an fp32 gradient."""
+
+    @staticmethod
+    def forward(ctx, x, table):
+        w = table.to(x.dtype)
+        ctx.save_for_backward(x, w)
+        ctx.table_dtype = table.dtype
+        return torch.mm(x, w.t(), out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        gb = g.to(x.dtype)
+        gx = torch.mm(gb, w) if ctx.needs_input_grad[0] else None
+        gw = (torch.mm(gb.t(), x, out_dtype=torch.float32).to(ctx.table_dtype)
+              if ctx.needs_input_grad[1] else None)
+        return gx, gw
+
+
 def _lm_head(embed_tokens: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Tied output head: compute-dtype operands, fp32 accumulation AND fp32
     logits — a bf16 product rounded to bf16 would create ties that the
     greedy rules break toward text, flipping tokens."""
     lead = x.shape[:-1]
-    x = x.reshape(-1, x.shape[-1]).to(embed_tokens.dtype)
-    if embed_tokens.dtype != torch.float32 and x.is_cuda:
-        y = torch.mm(x, embed_tokens.t(), out_dtype=torch.float32)
+    x = x.reshape(-1, x.shape[-1])
+    if x.dtype != torch.float32 and x.is_cuda:
+        y = _MixedHead.apply(x, embed_tokens)
     else:
         # bf16 x bf16 products are exact in fp32, so upcasting first computes
         # the same function (the CPU has no mixed-dtype product)
-        y = x.float() @ embed_tokens.float().t()
+        y = x.float() @ embed_tokens.to(x.dtype).float().t()
     return y.view(*lead, -1)
 
 
 def _conv1d(p: Params, x: torch.Tensor, stride: int) -> torch.Tensor:
     """1-D conv over [B, T, Cin] with SAME-1 padding -> [B, T', Cout]."""
-    y = F.conv1d(x.transpose(1, 2), p["weight"], p["bias"], stride=stride, padding=1)
+    y = F.conv1d(x.transpose(1, 2), p["weight"].to(x.dtype), p["bias"].to(x.dtype),
+                 stride=stride, padding=1)
     return y.transpose(1, 2)
+
+
+def _run_layer(fn, lp: Params, x: torch.Tensor, *args, remat: bool) -> torch.Tensor:
+    """``fn(lp, x, *args)``, checkpointed when ``remat`` and autograd is
+    recording (``jax.checkpoint`` on the JAX package's scanned body)."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, lp, x, *args, use_reentrant=False)
+    return fn(lp, x, *args)
 
 
 # ---------------------------------------------------------------------------
 # encoder
 # ---------------------------------------------------------------------------
 
+def _encoder_layer(lp: Params, x: torch.Tensor, n_heads: int) -> torch.Tensor:
+    h = _layer_norm(lp["self_attn_ln"], x)
+    a = lp["self_attn"]
+    q = _split_heads(_dense(a["q"], h), n_heads)
+    k = _split_heads(_dense(a["k"], h), n_heads)
+    v = _split_heads(_dense(a["v"], h), n_heads)
+    x = x + _dense(a["out"], _merge_heads(encoder_attention(q, k, v)))
+    h = _layer_norm(lp["final_ln"], x)
+    return x + _dense(lp["fc2"], _gelu(_dense(lp["fc1"], h)))
+
+
 def encode(params: Params, mel: torch.Tensor, config: WhisperConfig,
-           policy: DtypePolicy = DtypePolicy()) -> torch.Tensor:
+           policy: DtypePolicy = DtypePolicy(), *, remat: bool = True) -> torch.Tensor:
     """Encoder forward: conv stem -> +sinusoid positions -> N layers -> LN.
     mel [B, n_frames, num_mel_bins] -> [B, max_source_positions, d_model]
-    in the compute dtype."""
+    in the compute dtype. The positions table never trains (its gradient
+    stops here); ``remat`` checkpoints each layer while autograd records."""
     p = params["encoder"]
     dtype = policy.compute_dtype
-    n_heads = config.encoder_attention_heads
     x = _gelu(_conv1d(p["conv1"], mel.to(dtype), stride=1))
     x = _gelu(_conv1d(p["conv2"], x, stride=2))
-    x = x + p["embed_positions"]
+    x = x + p["embed_positions"].detach().to(dtype)
     for lp in p["layers"]:
-        h = _layer_norm(lp["self_attn_ln"], x)
-        a = lp["self_attn"]
-        q = _split_heads(_dense(a["q"], h), n_heads)
-        k = _split_heads(_dense(a["k"], h), n_heads)
-        v = _split_heads(_dense(a["v"], h), n_heads)
-        x = x + _dense(a["out"], _merge_heads(encoder_attention(q, k, v)))
-        h = _layer_norm(lp["final_ln"], x)
-        x = x + _dense(lp["fc2"], _gelu(_dense(lp["fc1"], h)))
+        x = _run_layer(_encoder_layer, lp, x, config.encoder_attention_heads, remat=remat)
     return _layer_norm(p["ln_post"], x).to(dtype)
 
 
-def decode_train(*args, **kwargs):
-    raise NotImplementedError("decode_train waits for the training slice (ROADMAP Queue A)")
+def _decoder_train_layer(lp: Params, x: torch.Tensor, enc: torch.Tensor,
+                         causal: torch.Tensor, n_heads: int) -> torch.Tensor:
+    h = _layer_norm(lp["self_attn_ln"], x)
+    a = lp["self_attn"]
+    q = _split_heads(_dense(a["q"], h), n_heads)
+    k = _split_heads(_dense(a["k"], h), n_heads)
+    v = _split_heads(_dense(a["v"], h), n_heads)
+    x = x + _dense(a["out"], _merge_heads(attention_plain(q, k, v, causal)))
+    h = _layer_norm(lp["cross_attn_ln"], x)
+    c = lp["cross_attn"]
+    q = _split_heads(_dense(c["q"], h), n_heads)
+    k = _split_heads(_dense(c["k"], enc), n_heads)
+    v = _split_heads(_dense(c["v"], enc), n_heads)
+    x = x + _dense(c["out"], _merge_heads(attention_plain(q, k, v)))
+    h = _layer_norm(lp["final_ln"], x)
+    return x + _dense(lp["fc2"], _gelu(_dense(lp["fc1"], h)))
 
 
-def forward(*args, **kwargs):
-    raise NotImplementedError("forward waits for the training slice (ROADMAP Queue A)")
+def decode_train(params: Params, enc_out: torch.Tensor, tokens: torch.Tensor,
+                 config: WhisperConfig, policy: DtypePolicy = DtypePolicy(), *,
+                 attention_mask: Optional[torch.Tensor] = None,
+                 output_hidden_states: bool = False, remat: bool = True):
+    """Full-sequence (teacher-forcing) decoder forward -> fp32 logits
+    [B, U, vocab]: causal self-attention, cross-attention over ``enc_out``.
+    ``attention_mask`` ([B, U] bool, True = keep) masks keys of left-padded
+    prompts. With ``output_hidden_states`` returns (logits, hidden
+    [L, B, U, d]), hidden[l] the output of decoder layer l."""
+    p = params["decoder"]
+    dtype = policy.compute_dtype
+    u = tokens.shape[1]
+    x = F.embedding(tokens, p["embed_tokens"]).to(dtype) + p["embed_positions"][:u].to(dtype)
+    causal = torch.tril(torch.ones(u, u, dtype=torch.bool, device=tokens.device))[None, None]
+    if attention_mask is not None:
+        causal = causal & attention_mask[:, None, None, :]
+    enc = enc_out.to(dtype)
+    hidden = []
+    for lp in p["layers"]:
+        x = _run_layer(_decoder_train_layer, lp, x, enc, causal,
+                       config.decoder_attention_heads, remat=remat)
+        if output_hidden_states:
+            hidden.append(x)
+    logits = _lm_head(p["embed_tokens"], _layer_norm(p["ln_post"], x))
+    if output_hidden_states:
+        return logits, torch.stack(hidden)
+    return logits
+
+
+def forward(params: Params, mel: torch.Tensor, tokens: torch.Tensor, config: WhisperConfig,
+            policy: DtypePolicy = DtypePolicy()) -> torch.Tensor:
+    """encoder + teacher-forcing decoder -> fp32 logits [B, U, vocab]."""
+    return decode_train(params, encode(params, mel, config, policy), tokens, config, policy)
 
 
 def extend(*args, **kwargs):

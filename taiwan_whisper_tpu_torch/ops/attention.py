@@ -1,17 +1,31 @@
-"""Encoder self-attention: the CUDA flash kernel and the plain version.
+"""Encoder self-attention: the CUDA flash kernels and the plain version.
 
 Replaces taiwan_whisper_tpu/ops/attention.py::encoder_attention and its
-flash route (encoder_attention_flash). The kernel (csrc/encoder_attention.cu)
-is a flash-attention forward: bf16 mma.sync tensor-core products with fp32
-online softmax in registers, 64-key tiles through shared memory, the
-ragged last tile masked in the kernel. It is bound by operations (368.6
-GFLOP per large-v2 batch of 32). An fp32 SIMT variant serves the fp32
-policy. q/k/v are [B, S, H, Dh] and read through their strides.
+flash route, encoder_attention_flash, forward and backward (its custom VJP).
+
+* Forward (csrc/encoder_attention.cu): a flash-attention forward, bf16
+  mma.sync tensor-core products with fp32 online softmax in registers,
+  64-key tiles through shared memory, the ragged last tile masked in the
+  kernel. Bound by operations (368.6 GFLOP per large-v2 batch of 32). It
+  optionally writes the per-row log-sum-exp (LSE) the backward needs.
+* Backward (csrc/encoder_attention_bwd.cu): FlashAttention-2's backward
+  without atomics, so gradients are deterministic: D = rowsum(dO * O),
+  then a dK/dV kernel per 64-key tile and a dQ kernel per 64-query tile,
+  each recomputing P from q, k and the LSE.
+
+Both have fp32 SIMT variants for the fp32 policy. q/k/v are [B, S, H, Dh]
+and read through their strides.
+
+``encoder_attention`` launches the forward with no LSE (a null pointer)
+when no gradient is wanted (inference, the frozen encoder); when one is,
+it goes through ``EncoderAttention``, an autograd function whose forward
+writes the LSE and whose backward is the backward kernel. On CPU tensors
+it is the plain version under autograd.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -19,7 +33,9 @@ from . import _build
 
 _P, _L, _I = _build.P, _build.L, _build.I
 _SIG = {"twt_encoder_attention": [_I, _I, _I, _I] + [_P, _L, _L, _L] * 4
-        + [_build.F, _P]}
+        + [_P, _build.F, _P]}
+_SIG_BWD = {"twt_encoder_attention_bwd": [_I, _I, _I, _I] + [_P, _L, _L, _L] * 5
+            + [_P, _P] + [_P, _L, _L, _L] * 3 + [_build.F, _P]}
 HEAD_DIM = 64
 
 
@@ -37,32 +53,122 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhqk,bkhd->bqhd", probs.float(), v.float()).to(dtype)
 
 
-def encoder_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Non-causal MHA, [B, S, H, Dh] -> [B, S, H, Dh] in q's dtype."""
-    if q.device.type == "cpu":
-        return attention_plain(q, k, v)
-    _build.require_cuda(q, k, v)
-    b, s, h, d = q.shape
-    if d != HEAD_DIM or k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(f"encoder attention takes equal [B,S,H,64] q/k/v, got "
-                         f"{tuple(q.shape)} {tuple(k.shape)} {tuple(v.shape)}")
-    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"encoder attention takes bf16 or fp32 q/k/v, got {q.dtype}")
-    for t in (q, k, v):
+def lse_plain(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """Per-row log-sum-exp of the scaled fp32 scores, [B, H, S]."""
+    scale = q.shape[-1] ** -0.5
+    logits = torch.einsum("bqhd,bkhd->bhqk", (q * scale).float(), k.float())
+    return torch.logsumexp(logits, dim=-1)
+
+
+def attention_backward_plain(q, k, v, dout) -> Tuple[torch.Tensor, ...]:
+    """(dq, dk, dv) of ``attention_plain`` by autograd."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = attention_plain(*leaves)
+        return torch.autograd.grad(out, leaves, dout)
+
+
+def _check(*tensors):
+    b, s, h, d = tensors[0].shape
+    if d != HEAD_DIM or any(t.shape != tensors[0].shape for t in tensors):
+        raise ValueError(f"encoder attention takes equal [B,S,H,64] tensors, got "
+                         f"{[tuple(t.shape) for t in tensors]}")
+    dtype = tensors[0].dtype
+    if any(t.dtype != dtype for t in tensors) or dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"encoder attention takes bf16 or fp32 tensors, got "
+                         f"{[t.dtype for t in tensors]}")
+    for t in tensors:
         # bf16 tiles are read as 16-byte vectors
         if t.stride(-1) != 1 or any(x % 8 for x in t.stride()[:3]) or t.data_ptr() % 16:
-            raise ValueError(f"q/k/v need a contiguous head dim and 16-byte aligned "
-                             f"rows, got strides {t.stride()}")
+            raise ValueError(f"attention tensors need a contiguous head dim and 16-byte "
+                             f"aligned rows, got strides {t.stride()}")
+
+
+def _ptr_strides(t):
+    return [t.data_ptr(), t.stride(0), t.stride(1), t.stride(2)]
+
+
+def _forward_kernel(q, k, v, with_lse: bool):
+    _build.require_cuda(q, k, v)
+    _check(q, k, v)
+    b, s, h, d = q.shape
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    lse = (torch.empty((b, h, s), device=q.device, dtype=torch.float32)
+           if with_lse else None)
     lib = _build.load("encoder_attention", _SIG)
     args = []
     for t in (q, k, v, out):
-        args += [t.data_ptr(), t.stride(0), t.stride(1), t.stride(2)]
+        args += _ptr_strides(t)
     _build.check(lib.twt_encoder_attention(
-        _build.dtype_code(q), b, s, h, *args, d ** -0.5, _build.stream_of(q)),
-        "encoder attention kernel")
+        _build.dtype_code(q), b, s, h, *args, None if lse is None else lse.data_ptr(),
+        d ** -0.5, _build.stream_of(q)), "encoder attention kernel")
     encoder_attention.launches += 1
-    return out
+    return out, lse
+
+
+def encoder_attention_backward(q, k, v, out, lse, dout):
+    """(dq, dk, dv), [B, S, H, Dh] in q's dtype, from the forward's ``out``
+    and ``lse``. On CPU tensors: the plain version's gradients."""
+    if q.device.type == "cpu":
+        return attention_backward_plain(q, k, v, dout)
+    _build.require_cuda(q, k, v, out, lse, dout)
+    if dout.stride(-1) != 1 or any(x % 8 for x in dout.stride()[:3]):
+        dout = dout.contiguous()
+    _check(q, k, v, out, dout)
+    b, s, h, d = q.shape
+    if lse.shape != (b, h, s) or lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError(f"lse must be contiguous fp32 [B, H, S], got {lse.dtype} "
+                         f"{tuple(lse.shape)}")
+    grads = [torch.empty_like(q, memory_format=torch.contiguous_format) for _ in range(3)]
+    dbuf = torch.empty((b, h, s), device=q.device, dtype=torch.float32)
+    lib = _build.load("encoder_attention_bwd", _SIG_BWD)
+    args = []
+    for t in (q, k, v, out, dout):
+        args += _ptr_strides(t)
+    args += [lse.data_ptr(), dbuf.data_ptr()]
+    for t in grads:
+        args += _ptr_strides(t)
+    _build.check(lib.twt_encoder_attention_bwd(
+        _build.dtype_code(q), b, s, h, *args, d ** -0.5, _build.stream_of(q)),
+        "encoder attention backward kernels")
+    encoder_attention_backward.launches += 1
+    return tuple(grads)
+
+
+class EncoderAttention(torch.autograd.Function):
+    """Encoder attention with the CUDA backward: the forward kernel writes
+    the LSE, the backward recomputes P from it. Under per-layer
+    checkpointing the forward runs twice per step (the forward pass and
+    the recompute before the backward)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        out, lse = _forward_kernel(q, k, v, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        return encoder_attention_backward(*ctx.saved_tensors, dout)
+
+
+def encoder_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Non-causal MHA, [B, S, H, Dh] -> [B, S, H, Dh] in q's dtype,
+    differentiable."""
+    if q.device.type == "cpu":
+        return attention_plain(q, k, v)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return EncoderAttention.apply(q, k, v)
+    return _forward_kernel(q, k, v, with_lse=False)[0]
+
+
+def encoder_attention_lse(q, k, v):
+    """(out, lse) of one forward launch that writes the LSE (what the
+    differentiable path runs), for checking the LSE output on its own."""
+    if q.device.type == "cpu":
+        return attention_plain(q, k, v), lse_plain(q, k)
+    return _forward_kernel(q, k, v, with_lse=True)
 
 
 encoder_attention.launches = 0
+encoder_attention_backward.launches = 0

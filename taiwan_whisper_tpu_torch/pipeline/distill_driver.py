@@ -1,0 +1,243 @@
+"""Stage 3 driver: the knowledge-distillation and fine-tuning loop (port of
+taiwan_whisper_tpu/pipeline/distill_driver.py) on one device.
+
+Teacher and student setup (language-embedding mix, maximally-spaced
+student init, frozen or trainable encoder), streaming manifest batches on a
+prefetch thread, the log-mel on the device through the mel kernel, the
+train step, loss-only eval with best-checkpoint tracking, checkpoint
+save/rotate/resume (skipping consumed batches), SIGTERM/SIGINT
+checkpointing, and the HF export of the student at every save.
+
+Weights are fp32 masters on the device whatever the checkpoint stores;
+compute runs in the policy's dtype. Only the teacher's decoder goes to the
+device (the student's encoder serves both), and a CE-only run loads no
+teacher. Not ported yet (raise NotImplementedError, ROADMAP Queue A 9):
+``model_parallel > 1``, wandb, generation eval.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import signal
+import time
+from typing import Dict, Iterator, Optional
+
+import numpy as np
+import torch
+
+from ..audio.manifest import read_manifest
+from ..models.config import DtypePolicy, resolve_device
+from ..models.io import load_model, save_hf_checkpoint
+from ..models.params import init_student_from_teacher, map_params, mix_language_embeddings
+from ..ops import mel_kernel
+from ..text.tokenizer import WhisperTokenizer
+from ..train.distill import DistillConfig, make_eval_step, make_train_step
+from ..train.state import CheckpointManager, OptimConfig, make_optimizer, trainable_mask
+from ..utils.logging import MetricsLogger
+from ..utils.prefetch import prefetch
+from .dataset import TrainPrepConfig, train_batches
+
+
+@dataclasses.dataclass
+class DistillRunConfig:
+    max_steps: int = 120_000
+    batch_size: int = 32
+    model_parallel: int = 1
+    save_steps: int = 1000
+    eval_steps: int = 1000
+    logging_steps: int = 25
+    save_total_limit: Optional[int] = 3
+    seed: int = 42
+    mix_lang_embeddings: bool = True  # zh <- (zh+en)/2, the K2D trick
+    resume: bool = True
+    use_wandb: bool = False
+    gen_eval_batches: int = 0  # >0: greedy-decode N eval batches -> MER
+    gen_eval_max_tokens: int = 128
+    gen_eval_table_rows: int = 32
+    num_workers: int = 4  # audio-decode threads (0 = inline)
+
+
+def _check_supported(run_cfg: DistillRunConfig):
+    unported = [name for name, on in (
+        ("--model_parallel > 1", run_cfg.model_parallel > 1),
+        ("--wandb", run_cfg.use_wandb),
+        ("--gen_eval_batches > 0", run_cfg.gen_eval_batches > 0),
+    ) if on]
+    if unported:
+        raise NotImplementedError(
+            f"{', '.join(unported)} wait(s) for a later slice of the port (ROADMAP Queue A 9)")
+
+
+def _masters(params, device):
+    """fp32 copies of every leaf on ``device`` (the training masters)."""
+    return map_params(lambda _, t: t.to(device=device, dtype=torch.float32), params)
+
+
+def run_distillation(train_manifest_path: str, teacher_dir: str, output_dir: str, *,
+                     student_dir: Optional[str] = None, student_decoder_layers: int = 2,
+                     student_encoder_layers: Optional[int] = None,
+                     run_cfg: DistillRunConfig = DistillRunConfig(),
+                     dcfg: DistillConfig = DistillConfig(),
+                     opt_cfg: Optional[OptimConfig] = None,
+                     prep_cfg: TrainPrepConfig = TrainPrepConfig(),
+                     tokenizer_dir: Optional[str] = None,
+                     eval_manifest_path: Optional[str] = None,
+                     policy: DtypePolicy = DtypePolicy(), device=None) -> Dict[str, float]:
+    """Train a student for ``run_cfg.max_steps`` steps; returns the metrics
+    of the last logged step."""
+    _check_supported(run_cfg)
+    dev = resolve_device(device)
+    tok = (WhisperTokenizer.from_pretrained_dir(tokenizer_dir) if tokenizer_dir
+           else WhisperTokenizer())
+    need_teacher = dcfg.kl_weight > 0.0 or dcfg.mse_weight > 0.0
+
+    teacher = None
+    if need_teacher or not student_dir:
+        teacher, teacher_cfg = load_model(teacher_dir)
+        teacher = map_params(lambda _, t: t.float(), teacher)
+        if run_cfg.mix_lang_embeddings:
+            zh, en = tok.special.language_id("zh"), tok.special.language_id("en")
+            teacher = mix_language_embeddings(teacher, zh, [zh, en])
+    if student_dir:
+        student, student_cfg = load_model(student_dir)
+    else:
+        student_cfg = teacher_cfg.with_decoder_layers(student_decoder_layers)
+        if student_encoder_layers is not None:
+            student_cfg = student_cfg.with_encoder_layers(student_encoder_layers)
+        student = init_student_from_teacher(teacher, teacher_cfg, student_decoder_layers,
+                                            encoder_layers=student_encoder_layers)
+    if not need_teacher:
+        teacher, teacher_cfg = None, student_cfg
+    student = _masters(student, dev)
+    # the student's encoder serves both decoders: only the teacher's
+    # decoder goes to the device
+    if teacher is not None:
+        teacher = {"decoder": _masters(teacher["decoder"], dev)}
+
+    opt_cfg = opt_cfg or OptimConfig(total_steps=run_cfg.max_steps)
+    optimizer = make_optimizer(opt_cfg, mask=trainable_mask(student, dcfg.freeze_encoder))
+    # pad/trim audio to the student's context and labels to its decoder length
+    prep_cfg = dataclasses.replace(
+        prep_cfg, chunk_samples=student_cfg.max_source_positions * 320,
+        max_label_length=min(prep_cfg.max_label_length, student_cfg.max_target_positions))
+    train_step = make_train_step(student_cfg, teacher_cfg, dcfg, optimizer, policy)
+    eval_step = make_eval_step(student_cfg, teacher_cfg, dcfg, policy)
+
+    manifest = read_manifest(train_manifest_path)
+    if not manifest.paths:
+        # an empty manifest would make the epoch stream spin forever
+        raise ValueError(f"empty train manifest: {train_manifest_path}")
+    ckpt = CheckpointManager(os.path.join(output_dir, "checkpoints"), run_cfg.save_total_limit)
+    logger = MetricsLogger(output_dir, use_wandb=run_cfg.use_wandb)
+
+    opt_state = optimizer.init(student)
+    start_step = 0
+    if run_cfg.resume:
+        restored, step0 = ckpt.restore(map_location=dev)
+        if restored is not None:
+            student, opt_state, start_step = restored["params"], restored["opt_state"], step0
+            print(f"[distill] resumed from step {start_step}", flush=True)
+
+    def to_device(batch) -> Dict[str, torch.Tensor]:
+        audio = torch.from_numpy(batch["audio"]).to(dev)
+        return {"mel": mel_kernel.log_mel(audio, student_cfg.num_mel_bins),
+                "decoder_input_ids": torch.from_numpy(batch["decoder_input_ids"]).to(dev),
+                "labels": torch.from_numpy(batch["labels"]).to(dev)}
+
+    # held-out eval: loss-only over a fixed batch set, tracking the best
+    # checkpoint
+    eval_batches = []
+    if eval_manifest_path:
+        eval_prep = dataclasses.replace(prep_cfg, timestamp_probability=1.0,
+                                        condition_on_prev_probability=0.0)
+        for eb in train_batches(read_manifest(eval_manifest_path), tok, eval_prep,
+                                run_cfg.batch_size, seed=0, shuffle=False):
+            eval_batches.append(eb)
+            if len(eval_batches) >= 8:
+                break
+    best_eval_loss = float("inf")
+
+    def run_eval(step):
+        nonlocal best_eval_loss
+        if not eval_batches:
+            return
+        totals: Dict[str, float] = {}
+        for eb in eval_batches:
+            for k, v in eval_step(student, teacher, to_device(eb)).items():
+                totals[k] = totals.get(k, 0.0) + float(v)
+        avg = {k: v / len(eval_batches) for k, v in totals.items()}
+        logger.log(avg, step, prefix="eval")
+        if avg["loss"] < best_eval_loss:
+            best_eval_loss = avg["loss"]
+            ckpt.save(step, {"params": student, "opt_state": opt_state}, keep=True)
+            print(f"[distill] new best eval loss {best_eval_loss:.4f} @ step {step} (kept)",
+                  flush=True)
+
+    def batch_stream() -> Iterator[Dict[str, np.ndarray]]:
+        epoch = 0
+        while True:
+            yield from train_batches(manifest, tok, prep_cfg, run_cfg.batch_size,
+                                     seed=run_cfg.seed + epoch, mel_fn=None,
+                                     num_workers=run_cfg.num_workers)
+            epoch += 1
+
+    # SIGTERM/SIGINT set a flag; the loop checkpoints and stops at the next
+    # step boundary
+    preempted = {"flag": False}
+
+    def _on_signal(signum, frame):
+        preempted["flag"] = True
+        print(f"[distill] signal {signum}: checkpointing at next step", flush=True)
+
+    old_handlers = {s: signal.signal(s, _on_signal) for s in (signal.SIGTERM, signal.SIGINT)}
+    try:
+        step, last_logged, t_last = start_step, start_step, time.time()
+        final_metrics: Dict[str, float] = {}
+        stream = batch_stream()
+        for _ in range(start_step):  # skip the batches a resumed run consumed
+            next(stream, None)
+        for batch in prefetch(stream, buffer_size=2):
+            if step >= run_cfg.max_steps:
+                break
+            if preempted["flag"]:
+                ckpt.save(step, {"params": student, "opt_state": opt_state})
+                print(f"[distill] preempted; saved checkpoint-{step}", flush=True)
+                break
+            student, opt_state, metrics = train_step(student, opt_state, teacher,
+                                                     to_device(batch))
+            step += 1
+            if step % run_cfg.logging_steps == 0 or step == run_cfg.max_steps:
+                host = {k: float(v) for k, v in metrics.items()}  # waits for the step
+                now = time.time()
+                host["steps_per_s"] = (step - last_logged) / max(now - t_last, 1e-6)
+                t_last, last_logged = now, step
+                logger.log(host, step)
+                final_metrics = host
+            if step % run_cfg.eval_steps == 0 or step == run_cfg.max_steps:
+                run_eval(step)
+            if step % run_cfg.save_steps == 0 or step == run_cfg.max_steps:
+                ckpt.save(step, {"params": student, "opt_state": opt_state})
+                save_hf_checkpoint(os.path.join(output_dir, "hf_export"), student, student_cfg)
+    finally:
+        for s, h in old_handlers.items():
+            signal.signal(s, h)
+        logger.close()
+    return final_metrics
+
+
+def run_finetuning(train_manifest_path: str, model_dir: str, output_dir: str, *,
+                   freeze_encoder: bool = False,
+                   run_cfg: DistillRunConfig = DistillRunConfig(),
+                   opt_cfg: Optional[OptimConfig] = None,
+                   prep_cfg: TrainPrepConfig = TrainPrepConfig(),
+                   tokenizer_dir: Optional[str] = None,
+                   eval_manifest_path: Optional[str] = None,
+                   policy: DtypePolicy = DtypePolicy(), device=None) -> Dict[str, float]:
+    """Plain CE seq2seq fine-tuning: the same loop with no teacher."""
+    return run_distillation(
+        train_manifest_path, model_dir, output_dir, student_dir=model_dir, run_cfg=run_cfg,
+        dcfg=DistillConfig(ce_weight=1.0, kl_weight=0.0, mse_weight=0.0,
+                           freeze_encoder=freeze_encoder),
+        opt_cfg=opt_cfg, prep_cfg=prep_cfg, tokenizer_dir=tokenizer_dir,
+        eval_manifest_path=eval_manifest_path, policy=policy, device=device)

@@ -1,8 +1,12 @@
-"""Whisper tokenizer: the id layout and decode side that labelling uses.
+"""Whisper tokenizer: special-token layout, timestamp tokens, byte-level BPE.
 
-The port's own copy of taiwan_whisper_tpu/text/tokenizer.py (special-token
-layout, timestamp tokens, byte-level decode). Text *encoding* (BPE merges)
-is not on the labelling path and waits for the training slice.
+The port's own copy of taiwan_whisper_tpu/text/tokenizer.py: the id layout,
+byte-level decode, and the encode side that training uses (GPT-2 BPE over
+``vocab.json``/``merges.txt``, ``encode_transcript`` with ``<|..|>``
+markers). The GPT-2 pretokenizer is written out by hand over
+``unicodedata`` categories instead of the ``regex`` package, which the
+machine with the card does not have; it splits text as the JAX package's
+``regex`` pattern does (letters and numbers by Unicode 15 categories).
 """
 
 from __future__ import annotations
@@ -10,8 +14,9 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import unicodedata
 from functools import lru_cache
-from typing import Dict, Iterable, List, Optional, Sequence
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 # 99 Whisper languages in canonical order; token id = SOT + 1 + index.
 LANGUAGES = (
@@ -98,6 +103,11 @@ class SpecialTokens:
     def timestamp_seconds(self, token_id: int) -> float:
         return (token_id - self.timestamp_begin) * TIME_PRECISION
 
+    def seconds_to_timestamp(self, seconds: float) -> int:
+        idx = int(round(seconds / TIME_PRECISION))
+        idx = max(0, min(idx, self.n_timestamps - 1))
+        return self.timestamp_begin + idx
+
 
 MULTILINGUAL = SpecialTokens()
 
@@ -120,13 +130,65 @@ def bytes_to_unicode() -> Dict[int, str]:
     return dict(zip(bs, [chr(c) for c in cs]))
 
 
-class WhisperTokenizer:
-    """Id-first Whisper tokenizer (decode side).
+def _is_space(ch: str) -> bool:
+    """``\\s`` of the ``regex`` package: Unicode White_Space, which leaves
+    out the separators U+001C-U+001F that ``str.isspace`` counts."""
+    return ch.isspace() and not "\x1c" <= ch <= "\x1f"
 
-    ``vocab`` is optional; without it text ids render as ``<unk-N>``.
-    Extra added tokens (``<|continued|>``) follow the timestamp block.
-    Decoding needs only the vocab; BPE merges (text encoding) wait for the
-    training slice.
+
+def _char_class(ch: str) -> str:
+    """'L' (letter), 'N' (number), 'S' (whitespace) or 'O' (other)."""
+    if _is_space(ch):
+        return "S"
+    cat = unicodedata.category(ch)[0]
+    return cat if cat in "LN" else "O"
+
+
+_CONTRACTIONS = ("s", "t", "re", "ve", "m", "ll", "d")
+
+
+def pretokenize(text: str) -> List[str]:
+    """GPT-2's pretokenizer, the ``regex`` pattern
+    ``'s|'t|'re|'ve|'m|'ll|'d| ?\\p{L}+| ?\\p{N}+| ?[^\\s\\p{L}\\p{N}]+|\\s+(?!\\S)|\\s+``
+    matched left to right by hand."""
+    out: List[str] = []
+    n, i = len(text), 0
+    while i < n:
+        if text[i] == "'":
+            hit = next((c for c in _CONTRACTIONS if text.startswith(c, i + 1)), None)
+            if hit is not None:
+                out.append(text[i:i + 1 + len(hit)])
+                i += 1 + len(hit)
+                continue
+        # ' ?X+' for X in letters, numbers, other: an optional single space
+        # and then a run of one class
+        j = i + 1 if text[i] == " " and i + 1 < n else i
+        cls = _char_class(text[j])
+        if cls != "S":
+            k = j + 1
+            while k < n and _char_class(text[k]) == cls:
+                k += 1
+            out.append(text[i:k])
+            i = k
+            continue
+        # '\s+(?!\S)' keeps the last space of a run for the next word;
+        # '\s+' takes a single space before a non-space
+        k = i + 1
+        while k < n and _is_space(text[k]):
+            k += 1
+        if k < n and k - i >= 2:
+            k -= 1
+        out.append(text[i:k])
+        i = k
+    return out
+
+
+class WhisperTokenizer:
+    """Id-first Whisper tokenizer.
+
+    ``vocab``/``merges`` are optional; without them text encoding is
+    unavailable and text ids decode as ``<unk-N>``. Extra added tokens
+    (``<|continued|>``) follow the timestamp block.
     """
 
     CONTINUED = "<|continued|>"
@@ -135,23 +197,80 @@ class WhisperTokenizer:
         self,
         special: SpecialTokens = MULTILINGUAL,
         vocab: Optional[Dict[str, int]] = None,
+        merges: Optional[List[Tuple[str, str]]] = None,
         added_tokens: Sequence[str] = (CONTINUED,),
     ):
         self.special = special
         self.vocab = vocab
         self.inv_vocab = {v: k for k, v in vocab.items()} if vocab else None
+        self.bpe_ranks = (
+            {pair: i for i, pair in enumerate(merges)} if merges is not None else None
+        )
         self.byte_encoder = bytes_to_unicode()
         self.byte_decoder = {v: k for k, v in self.byte_encoder.items()}
         self.added_tokens: Dict[str, int] = {
             tok: special.vocab_size + i for i, tok in enumerate(added_tokens)
         }
         self.inv_added = {v: k for k, v in self.added_tokens.items()}
+        self._bpe_cache: Dict[str, List[str]] = {}
+
+    @classmethod
+    def from_files(cls, vocab_path: str, merges_path: str,
+                   special: SpecialTokens = MULTILINGUAL, **kw) -> "WhisperTokenizer":
+        with open(vocab_path, encoding="utf-8") as f:
+            vocab = json.load(f)
+        merges: List[Tuple[str, str]] = []
+        with open(merges_path, encoding="utf-8") as f:
+            for line in f:
+                line = line.strip()
+                if not line or line.startswith("#version"):
+                    continue
+                a, b = line.split(" ")
+                merges.append((a, b))
+        return cls(special=special, vocab=vocab, merges=merges, **kw)
 
     @classmethod
     def from_pretrained_dir(cls, path: str, **kw) -> "WhisperTokenizer":
-        """Load the vocab of an HF-style tokenizer dir (vocab.json)."""
-        with open(os.path.join(path, "vocab.json"), encoding="utf-8") as f:
-            return cls(vocab=json.load(f), **kw)
+        """Load from an HF-style tokenizer dir (vocab.json + merges.txt)."""
+        return cls.from_files(os.path.join(path, "vocab.json"),
+                              os.path.join(path, "merges.txt"), **kw)
+
+    def _bpe(self, token: str) -> List[str]:
+        if token in self._bpe_cache:
+            return self._bpe_cache[token]
+        word = list(token)
+        if not word:
+            return []
+        while len(word) > 1:
+            pairs = {(word[i], word[i + 1]) for i in range(len(word) - 1)}
+            best = min(pairs, key=lambda p: self.bpe_ranks.get(p, 1 << 60))
+            if best not in self.bpe_ranks:
+                break
+            merged: List[str] = []
+            i = 0
+            while i < len(word):
+                if i < len(word) - 1 and (word[i], word[i + 1]) == best:
+                    merged.append(word[i] + word[i + 1])
+                    i += 2
+                else:
+                    merged.append(word[i])
+                    i += 1
+            word = merged
+        self._bpe_cache[token] = word
+        return word
+
+    def encode_text(self, text: str) -> List[int]:
+        """Plain text -> ids (no special tokens). Requires vocab files."""
+        if self.vocab is None or self.bpe_ranks is None:
+            raise RuntimeError(
+                "text encoding requires vocab.json/merges.txt; construct via "
+                "WhisperTokenizer.from_files(...)")
+        ids: List[int] = []
+        for tok in pretokenize(text):
+            mapped = "".join(self.byte_encoder[b] for b in tok.encode("utf-8"))
+            for piece in self._bpe(mapped):
+                ids.append(self.vocab[piece])
+        return ids
 
     def special_token_string(self, token_id: int) -> Optional[str]:
         s = self.special
@@ -220,3 +339,79 @@ class WhisperTokenizer:
                 pieces.append(f"<unk-{i}>")
         flush()
         return "".join(pieces)
+
+
+def parse_timestamp_str(tok: str) -> Optional[float]:
+    """'<|1.24|>' -> 1.24; None if not a timestamp marker."""
+    if not (tok.startswith("<|") and tok.endswith("|>")):
+        return None
+    try:
+        return float(tok[2:-2])
+    except ValueError:
+        return None
+
+
+def _marker_to_id(tok: WhisperTokenizer, marker: str) -> Optional[int]:
+    """'<|...|>' string -> token id (timestamps, specials, languages, added)."""
+    s = tok.special
+    ts = parse_timestamp_str(marker)
+    if ts is not None:
+        return s.seconds_to_timestamp(ts)
+    names = {
+        "<|endoftext|>": s.eot,
+        "<|startoftranscript|>": s.sot,
+        "<|translate|>": s.translate,
+        "<|transcribe|>": s.transcribe,
+        "<|startoflm|>": s.start_of_lm,
+        "<|startofprev|>": s.sot_prev,
+        "<|nospeech|>": s.no_speech,
+        "<|notimestamps|>": s.no_timestamps,
+    }
+    if marker in names:
+        return names[marker]
+    if marker in tok.added_tokens:
+        return tok.added_tokens[marker]
+    inner = marker[2:-2]
+    langs = LANGUAGES_V3 if s.n_languages == 100 else LANGUAGES
+    if inner in langs:
+        return s.language_id(inner)
+    return None
+
+
+def encode_transcript(tok: WhisperTokenizer, text: str, *, language: str = "zh",
+                      task: str = "transcribe", predict_timestamps: bool = True,
+                      add_special_tokens: Optional[bool] = None) -> List[int]:
+    """Segment-transcript string -> token ids.
+
+    '<|..|>' markers map to their special/timestamp ids; plain text spans go
+    through BPE. When the string carries no '<|transcribe|>' marker, the sot
+    prefix [sot, lang, task(, notimestamps)] is prepended and <|endoftext|>
+    appended.
+    """
+    if add_special_tokens is None:
+        add_special_tokens = "<|transcribe|>" not in text
+    ids: List[int] = []
+    i = 0
+    while i < len(text):
+        j = text.find("<|", i)
+        if j < 0:
+            if text[i:]:
+                ids.extend(tok.encode_text(text[i:]))
+            break
+        if text[i:j]:
+            ids.extend(tok.encode_text(text[i:j]))
+        k = text.find("|>", j + 2)
+        if k < 0:
+            ids.extend(tok.encode_text(text[j:]))
+            break
+        marker = text[j:k + 2]
+        mid = _marker_to_id(tok, marker)
+        if mid is None:
+            ids.extend(tok.encode_text(marker))
+        else:
+            ids.append(mid)
+        i = k + 2
+    if add_special_tokens:
+        prefix = tok.sot_sequence(language, task, timestamps=predict_timestamps)
+        ids = prefix + ids + [tok.special.eot]
+    return ids

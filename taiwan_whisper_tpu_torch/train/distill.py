@@ -1,0 +1,179 @@
+"""Knowledge-distillation losses and the train step (port of
+taiwan_whisper_tpu/train/distill.py).
+
+* loss = ce_weight * masked-CE + kl_weight * T^2 * KL(teacher_T || student_T)
+  (+ mse_weight * MSE on maximally-spaced decoder hidden states).
+* The frozen encoder runs once, under ``torch.no_grad()`` (the JAX package
+  stop-gradients the encoder params), through the forward attention kernel
+  with no LSE. A trainable encoder runs with autograd, each layer
+  checkpointed, through the attention autograd function (forward kernel
+  with LSE, backward kernel). Both decoders read the encoder output; the
+  teacher runs under ``no_grad``.
+* Normalisation is by the batch's non-masked token count.
+* Gradients flow only to trainable leaves (the encoder when not frozen,
+  the decoder except its positions table): ``requires_grad`` is set on
+  exactly those, which is the JAX package's ``zero_frozen``. The global
+  norm clip and the AdamW update run in fp32 on the fp32 masters, in place.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from ..models import whisper as M
+from ..models.config import DtypePolicy, WhisperConfig
+from ..models.params import layers_to_supervise, named_leaves
+
+LABEL_IGNORE = -100
+
+
+@dataclasses.dataclass(frozen=True)
+class DistillConfig:
+    """KD hyper-parameters (defaults: beta=0.8 CE, gamma=1.0 KL, T=2)."""
+
+    ce_weight: float = 0.8
+    kl_weight: float = 1.0
+    temperature: float = 2.0
+    mse_weight: float = 0.0
+    freeze_encoder: bool = True
+    # checkpoint the student decoder's layers in the backward pass (off: the
+    # 2-layer student decoder's activations are small)
+    remat_student: bool = False
+
+
+def masked_cross_entropy(logits: torch.Tensor,
+                         labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(sum of CE over valid tokens, valid token count); logits [B, U, V]
+    fp32, labels [B, U] with LABEL_IGNORE masking."""
+    mask = labels != LABEL_IGNORE
+    safe = torch.where(mask, labels, 0).long()
+    logprobs = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logprobs, -1, safe[..., None])[..., 0]
+    nll = torch.where(mask, nll, 0.0)
+    return nll.sum(), mask.sum()
+
+
+def kl_divergence(teacher_logits: torch.Tensor, student_logits: torch.Tensor,
+                  labels: torch.Tensor, temperature: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Temperature-scaled forward KL, masked sum, times T^2."""
+    mask = labels != LABEL_IGNORE
+    t_prob = torch.softmax(teacher_logits / temperature, dim=-1)
+    s_logprob = torch.log_softmax(student_logits / temperature, dim=-1)
+    t_logprob = torch.log_softmax(teacher_logits / temperature, dim=-1)
+    kl = (t_prob * (t_logprob - s_logprob)).sum(dim=-1)
+    kl = torch.where(mask, kl, 0.0)
+    return kl.sum() * (temperature ** 2), mask.sum()
+
+
+def distill_loss(student_params, teacher_params, batch: Dict[str, torch.Tensor],
+                 student_config: WhisperConfig, teacher_config: WhisperConfig,
+                 dcfg: DistillConfig, policy: DtypePolicy = DtypePolicy()):
+    """(scalar loss, metrics dict of 0-d tensors) for one batch: ``mel``
+    [B, T, n_mels], ``decoder_input_ids`` [B, U], ``labels`` [B, U]
+    (-100 on prompt and pad positions)."""
+    mel, dec_in, labels = batch["mel"], batch["decoder_input_ids"], batch["labels"]
+    if dcfg.freeze_encoder:
+        with torch.no_grad():
+            enc = M.encode(student_params, mel, student_config, policy, remat=False)
+    else:
+        enc = M.encode(student_params, mel, student_config, policy)
+
+    need_mse = dcfg.mse_weight > 0.0
+    # CE-only fine-tuning skips the teacher forward entirely
+    need_teacher = dcfg.kl_weight > 0.0 or need_mse
+    s_out = M.decode_train(student_params, enc, dec_in, student_config, policy,
+                           output_hidden_states=need_mse, remat=dcfg.remat_student)
+    s_logits, s_hidden = s_out if need_mse else (s_out, None)
+    t_logits = t_hidden = None
+    if need_teacher:
+        with torch.no_grad():
+            t_out = M.decode_train(teacher_params, enc.detach(), dec_in, teacher_config,
+                                   policy, output_hidden_states=need_mse, remat=False)
+        t_logits, t_hidden = t_out if need_mse else (t_out, None)
+
+    ce_sum, n_tok = masked_cross_entropy(s_logits, labels)
+    n_tok = torch.clamp(n_tok, min=1)
+    ce = ce_sum / n_tok
+    loss = dcfg.ce_weight * ce
+    metrics = {"ce": ce}
+    if need_teacher:
+        kl_sum, _ = kl_divergence(t_logits, s_logits, labels, dcfg.temperature)
+        kl = kl_sum / n_tok
+        loss = loss + dcfg.kl_weight * kl
+        metrics["kl"] = kl
+    if need_mse:
+        # equal-increment teacher layers supervise the student layers,
+        # e.g. 32 -> 2 supervises with teacher layers [15, 31]
+        idx = layers_to_supervise(student_config.decoder_layers,
+                                  teacher_config.decoder_layers)
+        t_sel = t_hidden[torch.as_tensor(idx, device=t_hidden.device)]
+        mask = (labels != LABEL_IGNORE)[None, :, :, None]
+        diff = (s_hidden.float() - t_sel.float()) ** 2
+        mse = torch.where(mask, diff, 0.0).sum() / (
+            torch.clamp(mask.sum(), min=1) * s_hidden.shape[-1])
+        loss = loss + dcfg.mse_weight * mse
+        metrics["mse"] = mse
+    metrics["loss"] = loss
+    return loss, metrics
+
+
+def trainable_paths(params, freeze_encoder: bool):
+    """Dotted paths of the leaves that receive gradients: the decoder but
+    its positions table, and the encoder when it is not frozen."""
+    return [path for path, _ in named_leaves(params)
+            if path != "decoder.embed_positions"
+            and not (freeze_encoder and path.startswith("encoder."))]
+
+
+def global_norm(grads) -> torch.Tensor:
+    """sqrt of the sum of squares of every gradient, in fp32."""
+    sq = [g.float().square().sum() for g in grads if g is not None]
+    return torch.sqrt(torch.stack(sq).sum())
+
+
+def make_train_step(student_config: WhisperConfig, teacher_config: WhisperConfig,
+                    dcfg: DistillConfig, optimizer, policy: DtypePolicy = DtypePolicy(),
+                    max_grad_norm: Optional[float] = 1.0):
+    """The train step ``(student_params, opt_state, teacher_params, batch)
+    -> (student_params, opt_state, metrics)``. The student's fp32 leaves
+    are updated in place and returned."""
+
+    def train_step(student_params, opt_state, teacher_params, batch):
+        leaves = dict(named_leaves(student_params))
+        paths = trainable_paths(student_params, dcfg.freeze_encoder)
+        for path in paths:
+            leaves[path].requires_grad_(True)
+        loss, metrics = distill_loss(student_params, teacher_params, batch, student_config,
+                                     teacher_config, dcfg, policy)
+        got = torch.autograd.grad(loss, [leaves[p] for p in paths], allow_unused=True)
+        grads = dict(zip(paths, got))
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        if max_grad_norm is not None:
+            gnorm = global_norm(grads.values())
+            scale = torch.clamp(max_grad_norm / (gnorm + 1e-6), max=1.0)
+            grads = {p: None if g is None else g * scale for p, g in grads.items()}
+            metrics["grad_norm"] = gnorm
+        updates, opt_state = optimizer.update(grads, opt_state, leaves)
+        with torch.no_grad():
+            for path, u in updates.items():
+                if u is not None:
+                    leaves[path].add_(u.to(leaves[path].dtype))
+        return student_params, opt_state, metrics
+
+    return train_step
+
+
+def make_eval_step(student_config: WhisperConfig, teacher_config: WhisperConfig,
+                   dcfg: DistillConfig, policy: DtypePolicy = DtypePolicy()):
+    """Loss-only eval step: metrics of one batch, no gradients."""
+
+    def eval_step(student_params, teacher_params, batch):
+        with torch.no_grad():
+            _, metrics = distill_loss(student_params, teacher_params, batch, student_config,
+                                      teacher_config, dcfg, policy)
+        return metrics
+
+    return eval_step

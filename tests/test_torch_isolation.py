@@ -15,7 +15,8 @@ import taiwan_whisper_tpu_torch
 from taiwan_whisper_tpu_torch.decode.greedy import greedy_decode
 from taiwan_whisper_tpu_torch.decode.rules import DecodeRules
 from taiwan_whisper_tpu_torch.models.config import WhisperConfig
-from taiwan_whisper_tpu_torch.ops import attention, decode_attention, mel_kernel
+from taiwan_whisper_tpu_torch import cli
+from taiwan_whisper_tpu_torch.ops import attention, decode_attention, layer_norm, mel_kernel
 from taiwan_whisper_tpu_torch.pipeline.label import LabelConfig, label_files
 from taiwan_whisper_tpu_torch.text.tokenizer import MULTILINGUAL, WhisperTokenizer
 
@@ -85,6 +86,18 @@ def test_entry_points_default_to_cuda_and_raise(no_cuda, tmp_path):
                     LabelConfig(vad_mode="off"))
 
 
+@pytest.mark.parametrize("argv", [
+    ["distill", "--manifest", "m.tsv", "--teacher", "t", "--output_dir", "o"],
+    ["finetune", "--manifest", "m.tsv", "--model", "t", "--output_dir", "o"],
+    ["init-student", "--teacher", "t", "--out", "o"],
+], ids=["distill", "finetune", "init-student"])
+def test_train_entry_points_default_to_cuda_and_raise(no_cuda, argv):
+    """Stage 3's CLI entry points run on cuda unless told --device cpu, and
+    raise before reading anything when CUDA is missing."""
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(argv)
+
+
 @pytest.mark.parametrize("call", [
     lambda t: mel_kernel.log10_mel_spectrum(t(2, 1600)),
     lambda t: attention.encoder_attention(t(1, 8, 2, 64), t(1, 8, 2, 64), t(1, 8, 2, 64)),
@@ -92,7 +105,12 @@ def test_entry_points_default_to_cuda_and_raise(no_cuda, tmp_path):
                                                t(1, 2, 64, 8)),
     lambda t: decode_attention.self_attention(t(1, 2, 64), t(1, 2, 64, 8), t(1, 2, 64, 8),
                                               t(1, 2, 64), t(1, 2, 64), 3),
-], ids=["mel", "encoder_attention", "cross_attention", "self_attention"])
+    lambda t: attention.encoder_attention_backward(*(t(1, 8, 2, 64) for _ in range(4)),
+                                                   t(1, 2, 8), t(1, 8, 2, 64)),
+    lambda t: attention.encoder_attention_lse(t(1, 8, 2, 64), t(1, 8, 2, 64), t(1, 8, 2, 64)),
+    lambda t: layer_norm.layer_norm(t(4, 128), t(128), t(128)),
+], ids=["mel", "encoder_attention", "cross_attention", "self_attention",
+        "encoder_attention_backward", "encoder_attention_lse", "layer_norm"])
 def test_kernel_wrappers_raise_off_cpu(call):
     """A wrapper takes its plain version only for CPU tensors: any other
     device launches the kernel (CUDA) or raises — never a silent fallback."""

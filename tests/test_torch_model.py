@@ -1,6 +1,7 @@
 """The port's model functions against the JAX model at the fp32 policy,
 with the same weights bridged by from_jax_params: encode, the quantized
-cross-KV precompute, prefill and incremental decode steps."""
+cross-KV precompute, prefill and incremental decode steps, and the
+teacher-forcing decoder of training."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -112,9 +113,35 @@ def test_prefill_and_steps_match_jax(models, encoded, quantize):
 
 
 def test_unported_paths_raise(models):
+    """Paths later slices port (decode_train and forward are ported; see
+    test_decode_train_and_forward_match_jax)."""
     _, _, params, cfg = models
-    for fn in (M.decode_train, M.forward, M.extend):
-        with pytest.raises(NotImplementedError):
-            fn(params, cfg)
+    with pytest.raises(NotImplementedError):
+        M.extend(params, cfg)
     with pytest.raises(NotImplementedError):
         M.precompute_cross_kv(params, torch.zeros(1, 60, 64), cfg, FP32, quantize=4)
+
+
+def test_decode_train_and_forward_match_jax(models, encoded):
+    """Teacher-forcing logits (with hidden states and a key mask) and
+    encoder + decoder forward equal the JAX model's at fp32."""
+    jp, jcfg, params, cfg = models
+    jenc, enc = encoded
+    rng = np.random.RandomState(5)
+    tokens = rng.randint(0, 1000, (2, 9)).astype(np.int32)
+    keep = np.ones((2, 9), bool)
+    keep[1, :2] = False  # a left-padded prompt
+    jl, jh = JM.decode_train(jp, jnp.asarray(jenc), jnp.asarray(tokens), jcfg, JFP32,
+                             attention_mask=jnp.asarray(keep), output_hidden_states=True)
+    with torch.no_grad():
+        tl, th = M.decode_train(params, enc, torch.from_numpy(tokens), cfg, FP32,
+                                attention_mask=torch.from_numpy(keep),
+                                output_hidden_states=True)
+    assert tl.shape == (2, 9, 1000) and th.shape == (2, 2, 9, 64)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=2e-4, rtol=1e-4)
+    np.testing.assert_allclose(th.numpy(), np.asarray(jh), atol=2e-4, rtol=1e-4)
+    mel = np.random.RandomState(0).randn(2, 120, 80).astype(np.float32)
+    jf = JM.forward(jp, jnp.asarray(mel), jnp.asarray(tokens), jcfg, JFP32)
+    with torch.no_grad():
+        tf = M.forward(params, torch.from_numpy(mel), torch.from_numpy(tokens), cfg, FP32)
+    np.testing.assert_allclose(tf.numpy(), np.asarray(jf), atol=2e-4, rtol=1e-4)

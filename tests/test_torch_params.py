@@ -115,3 +115,51 @@ def test_init_params_layout_and_prepare():
     assert prepared["decoder"]["layers"][0]["final_ln"]["weight"].dtype == torch.float32
     assert prepared["encoder"]["ln_post"]["bias"].dtype == torch.float32
     assert num_params(prepared) == num_params(a)
+
+
+@pytest.mark.parametrize("kw", [dict(decoder_layers=1), dict(decoder_layers=2, encoder_layers=1),
+                                dict(decoder_layers=2, decoder_layer_indices=[1, 0])])
+def test_init_student_from_teacher_matches_jax(jax_model, kw):
+    from taiwan_whisper_tpu.models.params import init_student_from_teacher as jax_student
+    from taiwan_whisper_tpu_torch.models.params import init_student_from_teacher
+
+    jp, jcfg = jax_model
+    cfg = WhisperConfig(**SMALL)
+    n = kw["decoder_layers"]
+    scfg = cfg.with_decoder_layers(n)
+    if "encoder_layers" in kw:
+        scfg = scfg.with_encoder_layers(kw["encoder_layers"])
+    teacher = from_jax_params(jp, cfg)
+    got = init_student_from_teacher(teacher, cfg, n, kw.get("decoder_layer_indices"),
+                                    encoder_layers=kw.get("encoder_layers"))
+    ref = dict(_flat(from_jax_params(
+        jax_student(jp, jcfg, n, kw.get("decoder_layer_indices"),
+                    encoder_layers=kw.get("encoder_layers")), scfg)))
+    flat = dict(_flat(got))
+    assert set(flat) == set(ref)
+    for k, v in flat.items():
+        assert torch.equal(v, ref[k]), k
+        assert all(v.data_ptr() != t.data_ptr() for _, t in _flat(teacher)), k  # copies
+
+
+def test_mix_language_embeddings_matches_jax(jax_model):
+    from taiwan_whisper_tpu.models.params import mix_language_embeddings as jax_mix
+    from taiwan_whisper_tpu_torch.models.params import mix_language_embeddings
+
+    jp, _ = jax_model
+    port = from_jax_params(jp, WhisperConfig(**SMALL))
+    before = port["decoder"]["embed_tokens"].clone()
+    for weights in (None, [0.25, 0.75]):
+        got = mix_language_embeddings(port, 7, [7, 9], weights)["decoder"]["embed_tokens"]
+        ref = np.asarray(jax_mix(jp, 7, [7, 9], weights)["decoder"]["embed_tokens"])
+        np.testing.assert_array_equal(got.numpy(), ref)
+    assert torch.equal(port["decoder"]["embed_tokens"], before)  # input untouched
+
+
+def test_layer_index_maps_match_jax():
+    from taiwan_whisper_tpu.models import params as JP
+    from taiwan_whisper_tpu_torch.models import params as TP
+
+    for t, s in ((32, 2), (32, 3), (24, 4), (2, 1), (6, 6)):
+        assert TP.spaced_layer_indices(t, s) == JP.spaced_layer_indices(t, s)
+        assert TP.layers_to_supervise(s, t) == JP.layers_to_supervise(s, t)
