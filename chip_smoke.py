@@ -7,14 +7,20 @@
 Phases, each raising on failure:
 
 1. build   — compiles every CUDA kernel of taiwan_whisper_tpu_torch from
-   the checkout's csrc/ (one nvcc per source, all started together).
+   the checkout's csrc/ (one nvcc per source, all started together);
+   prints ptxas's register and spill lines and, from ``cuobjdump -sass``,
+   the count of wgmma (HGMMA) and TMA-load (UTMALDG) instructions in the
+   two attention libraries (fails if either is 0).
 2. kernels — calls each kernel's wrapper, in every variant a driven path
    launches, and holds it against its plain PyTorch version on the same
    inputs, with the tolerance stated beside it: bf16 at the labelling
    path's shapes (large-v2, batch 32) and the finetune path's (the
    encoder attention's LSE and backward at batch 8), fp32 at the agree
    phases' (base, batch 4), and the LayerNorm kernel (on no path, as in
-   the JAX package) at the encoder's LN shape. Times kernel, plain version
+   the JAX package) at the encoder's LN shape. The attention kernels are
+   also held, both directions, at S = 300, at B = 1 and on q/k/v that are
+   strided views of one [B, S, 3, H, 64] buffer, with their launch
+   counters checked. Times kernel, plain version
    and, where one exists, the one PyTorch call that computes the same
    function (CUDA events, median, L2 flushed before every launch).
 3. label   — the port's ``cli label`` at full large-v2 width with random
@@ -155,6 +161,20 @@ def phase_build():
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[ptxas {name}] {line.strip()}")
+    # the attention kernels are built on Hopper's wgmma (HGMMA) and TMA loads
+    # (UTMALDG): count them in the built code
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    for name in ("encoder_attention", "encoder_attention_bwd"):
+        if not os.path.exists(cuobjdump):
+            log(f"[sass {name}] cuobjdump not found: HGMMA / UTMALDG not counted")
+            continue
+        sass = subprocess.run([cuobjdump, "-sass", _build.library_path(name)],
+                              capture_output=True, text=True, check=True).stdout
+        counts = {op: sum(1 for line in sass.splitlines() if op in line)
+                  for op in ("HGMMA", "UTMALDG")}
+        log(f"[sass {name}] HGMMA {counts['HGMMA']}, UTMALDG {counts['UTMALDG']}")
+        if not all(counts.values()):
+            raise AssertionError(f"{name}: no wgmma or no TMA load in the built code: {counts}")
 
 
 def phase_kernels(torch, entries: dict, checks: list):
@@ -332,11 +352,11 @@ def phase_kernels(torch, entries: dict, checks: list):
     self_case(B, H, S, bf16, torch.randint(0, 3, (B,), generator=g, device=dev,
                                            dtype=torch.int32), 1e-3)
     self_case(AB, AH, AS, f32, None, 1e-5)
-    attention_backward_cases(torch, entries, record, g, flush)
+    attention_backward_cases(torch, entries, checks, record, g, flush)
     layer_norm_cases(torch, entries, record, g, flush)
 
 
-def attention_backward_cases(torch, entries, record, g, flush):
+def attention_backward_cases(torch, entries, checks, record, g, flush):
     """The differentiable encoder attention: the forward's LSE output and
     the backward kernels, bf16 at the finetune path's shapes (large-v2,
     batch 8) and fp32 at the agree phase's (base, batch 4)."""
@@ -382,7 +402,7 @@ def attention_backward_cases(torch, entries, record, g, flush):
                 f"{top:.3g}")
             if not err <= tols[-1]:
                 raise AssertionError(f"{key} {name}: max abs err {err:.3g} > {tols[-1]:.3g}")
-        flops = 5 * 4 * b * h * s * s * d  # S, dV, dP, dK, dQ: 2*S*S*d each
+        flops = 5 * 2 * b * h * s * s * d  # S, dV, dP, dK, dQ: 2*S*S*d each
         n_bytes = 8 * q.numel() * q.element_size() + lse.numel() * 4
         return record(
             key, "encoder_attention_bwd", src, rep, torch.cat([x.flatten() for x in got]),
@@ -422,6 +442,60 @@ def attention_backward_cases(torch, entries, record, g, flush):
     q, k, v, dout = (torch.randn((AGREE_BATCH, T, 8, D), generator=g, device=dev)
                      for _ in range(4))
     case("encoder_attention_bwd[fp32,agree]", q, k, v, dout, 1e-5, None, "fp32")
+    del q, k, v, dout
+    attention_edge_cases(torch, checks, g, dev)
+
+
+def attention_edge_cases(torch, checks, g, dev):
+    """The bf16 tensor maps and edge masks away from the main path's shapes,
+    both directions, under the rules above (forward 8e-3 on unit inputs;
+    LSE 1e-4 with the output equal bit for bit to the no-LSE launch; each
+    gradient within two bf16 ulps of its largest |plain|): S = 300 (one
+    partial tile of 44 rows in every kernel), B = 1 at S = 1500, and q/k/v
+    as strided views of one [B, S, 3, H, 64] buffer (a stale map or a map
+    built from the wrong strides reads the wrong rows). The launch counters
+    are zeroed first and must count exactly these launches."""
+    from taiwan_whisper_tpu_torch.ops import attention as EA
+
+    bf = torch.bfloat16
+
+    def separate(b, s, h):
+        return tuple(torch.randn((b, s, h, 64), generator=g, device=dev).to(bf)
+                     for _ in range(3))
+
+    def packed(b, s, h):
+        qkv = torch.randn((b, s, 3, h, 64), generator=g, device=dev).to(bf)
+        return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+
+    cases = {"S=300": separate(2, 300, 4), "B=1,S=1500": separate(1, 1500, 20),
+             "qkv-views": packed(2, 1500, 20)}
+    zero_counters()
+    for key, (q, k, v) in cases.items():
+        out, lse = EA.encoder_attention_lse(q, k, v)
+        same = torch.equal(out, EA.encoder_attention(q, k, v))
+        errs = {"out": (max_abs(out, EA.attention_plain(q, k, v)), 8e-3),
+                "lse": (max_abs(lse, EA.lse_plain(q, k)), 1e-4)}
+        dout = torch.randn(q.shape, generator=g, device=dev).to(bf)
+        got = EA.encoder_attention_backward(q, k, v, out, lse, dout)
+        ref = EA.attention_backward_plain(q, k, v, dout)
+        for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+            errs[name] = (max_abs(a, r), 2 * bf16_ulp(float(r.float().abs().max())))
+        log(f"[kernel] encoder_attention edge {key} {tuple(q.shape)} strides {q.stride()}: "
+            + ", ".join(f"{n} {e:.3g} (tol {t:.3g})" for n, (e, t) in errs.items())
+            + f"; output equal to the no-LSE launch: {same}")
+        checks.append(dict(check=f"encoder_attention_edge[{key}]", output_equal=same,
+                           **{n: dict(max_abs_err=e, tolerance=t) for n, (e, t) in errs.items()}))
+        bad = [n for n, (e, t) in errs.items() if not e <= t]
+        if bad or not same:
+            raise AssertionError(f"attention edge case {key}: {bad} out of tolerance, output "
+                                 f"equal {same}")
+    launches = read_counters()
+    expected = dict({k: 0 for k in launches}, encoder_attention=2 * len(cases),
+                    encoder_attention_bwd=len(cases))
+    log(f"[kernel] encoder_attention edge launches {json.dumps(launches)} expected "
+        f"{json.dumps(expected)}")
+    if launches != expected:
+        raise AssertionError(f"edge-case launch counts {launches} != expected {expected}")
 
 
 def layer_norm_cases(torch, entries, record, g, flush):

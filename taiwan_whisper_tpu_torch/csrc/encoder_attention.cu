@@ -8,16 +8,32 @@
 // Bound: operations. 4*S^2*Dh flop per (b, h): 368.6 GFLOP at large-v2,
 // batch 32 against ~25 MB of q/k/v/out, far above the card's
 // flop-per-byte ridge, so the [S, S] scores must never reach device memory.
+// At Dh = 64 the softmax's exponentials cost the SM as many cycles as the
+// products (16 exp2 per clock against 4096 bf16 flop per clock), so the
+// products have to run on wgmma and overlap the softmax of another
+// warpgroup.
 //
-// Design (bf16): a flash-attention forward. One block per (b, h, 64-query
-// tile), four warps of 16 query rows. q fragments stay in registers; K and V
-// tiles of 64 keys stream through shared memory (V stored transposed so the
-// PV operand is read as packed pairs); Q K^T and P V run on the tensor
-// cores as mma.sync.m16n8k16 bf16 with fp32 accumulation; the running row
-// max and row sum live in registers (the TPU kernel's ones-column trick for
-// the denominator has no use here). The ragged last key tile (1500 = 23*64
-// + 28) is masked in the kernel; tensors are read and written through the
-// strides given, with no padding copy. wgmma/TMA pipelining is later work.
+// Design (bf16), FlashAttention-3's forward: one block per (b, h,
+// 128-query tile), 12 x B*H blocks at S = 1500 (the last tile holds 92
+// rows), three warpgroups (hopper_attention.cuh):
+// * a producer warp TMA-loads the q tile once and K/V tiles of 128 keys
+//   into a ring of FWD_STAGES stages (128-byte swizzle, rows past S
+//   zero-filled), each stage completed by bytes on its `full` mbarrier;
+// * two consumer warpgroups of 64 query rows each compute S = q K^T as
+//   wgmma m64n128k16 (both operands from shared memory, K-major), the
+//   online softmax in fp32 registers in exp2 units (one FFMA and one
+//   MUFU.EX2 per score; the ragged last key tile, 1500 = 11*128 + 92,
+//   masked to -inf), then O += P V as wgmma m64n64k16 with P packed to
+//   bf16 in registers as the A operand and V read in place through the
+//   descriptor's transpose bit (no transposed copy, no bank conflicts),
+//   and release the stage on its `empty` mbarrier. Tile j's q K^T is
+//   issued beside tile j-1's P V, so each warpgroup's softmax overlaps its
+//   own P V, and the two warpgroups take turns to issue (ping-pong on
+//   named barriers), so one's softmax overlaps the other's products.
+// setmaxnreg moves registers from the producer (24) to the consumers
+// (240). The output and the LSE are stored from registers, rows past S
+// skipped; the launch that writes the LSE runs the same code, so its
+// output equals the no-LSE launch's bit for bit.
 //
 // fp32 variant: a plain SIMT flash loop (one thread per query row) so the
 // fp32 policy runs on the card too; it serves parity checks, not speed.
@@ -27,169 +43,201 @@
 // (encoder_attention_bwd.cu) recomputes the probabilities from; a null
 // pointer skips it (inference and the frozen encoder).
 
-#include <cuda_runtime.h>
 #include <math.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+
+#include "hopper_attention.cuh"
 
 namespace {
 
-constexpr int D = 64;        // head dim
-constexpr int BQ = 64;       // query rows per block (4 warps x 16)
-constexpr int BK = 64;       // keys per tile
-constexpr int LDS = BK + 8;  // padded shared row (bf16), conflict-free fragment reads
+using hopper::D;
+using hopper::Strides;
 constexpr float LN2 = 0.6931471805599453f;
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+constexpr int FWD_BQ = 128;     // query rows per block: two consumer warpgroups of 64
+constexpr int FWD_BK = 128;     // keys per K/V tile
+constexpr int FWD_STAGES = 4;   // K/V ring depth
+constexpr int TILE_BYTES = FWD_BK * D * 2;  // one q, K or V tile: 16 KB
 
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+struct FwdSmem {
+  __nv_bfloat16 q[FWD_BQ * D];
+  __nv_bfloat16 k[FWD_STAGES][FWD_BK * D];
+  __nv_bfloat16 v[FWD_STAGES][FWD_BK * D];
+  uint64_t q_full, full[FWD_STAGES], empty[FWD_STAGES];
+};
+constexpr int FWD_SMEM = sizeof(FwdSmem) + 1024;  // + alignment of the tiles to 1024
 
-struct Strides { long long b, s, h; };
-
-__global__ void __launch_bounds__(128)
-enc_attn_bf16(const __nv_bfloat16* __restrict__ q, Strides qs,
-              const __nv_bfloat16* __restrict__ k, Strides ks,
-              const __nv_bfloat16* __restrict__ v, Strides vs,
-              __nv_bfloat16* __restrict__ o, Strides os, float* __restrict__ lse,
-              int S, int H, float scale_log2) {
-  __shared__ __align__(16) __nv_bfloat16 Ks[BK][LDS];
-  __shared__ __align__(16) __nv_bfloat16 Vt[D][LDS];
-
-  const int b = blockIdx.y / H, h = blockIdx.y % H;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int r0 = blockIdx.x * BQ + warp * 16 + g, r1 = r0 + 8;
-
-  const __nv_bfloat16* qb = q + b * qs.b + h * qs.h;
-  const __nv_bfloat16* kb = k + b * ks.b + h * ks.h;
-  const __nv_bfloat16* vb = v + b * vs.b + h * vs.h;
-
-  // A fragments of q for the four 16-wide d steps
-  uint32_t qa[4][4];
+// Online softmax of one [64 x 128] score tile in exp2 units, rows r and
+// r + 8 of this thread: updates the running max m (scaled) and sum l,
+// overwrites the scores with P and returns the factors the output
+// accumulator is rescaled by. MASK: keys at or past S (the ragged last
+// tile) get P = 0.
+template <bool MASK>
+__device__ __forceinline__ void online_softmax(float (&sc)[64], float& m0, float& m1, float& l0,
+                                               float& l1, float& al0, float& al1, int key0,
+                                               int S, float scale_log2) {
+  if (MASK) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const int c = kk * 16 + 2 * t4;
-    qa[kk][0] = r0 < S ? *reinterpret_cast<const uint32_t*>(qb + r0 * qs.s + c) : 0u;
-    qa[kk][1] = r1 < S ? *reinterpret_cast<const uint32_t*>(qb + r1 * qs.s + c) : 0u;
-    qa[kk][2] = r0 < S ? *reinterpret_cast<const uint32_t*>(qb + r0 * qs.s + c + 8) : 0u;
-    qa[kk][3] = r1 < S ? *reinterpret_cast<const uint32_t*>(qb + r1 * qs.s + c + 8) : 0u;
+    for (int n = 0; n < 16; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        if (key0 + 8 * n + e >= S) sc[4 * n + e] = sc[4 * n + 2 + e] = -INFINITY;
   }
-
-  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
-  float oacc[8][4];
+  float mx0 = sc[0], mx1 = sc[2];
 #pragma unroll
-  for (int n = 0; n < 8; ++n) oacc[n][0] = oacc[n][1] = oacc[n][2] = oacc[n][3] = 0.f;
-
-  const int n_tiles = (S + BK - 1) / BK;
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < BK * D / 8; i += blockDim.x) {
-      const int key = i / (D / 8), c = (i % (D / 8)) * 8;
-      const int kk = kt * BK + key;
-      uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = make_uint4(0u, 0u, 0u, 0u);
-      if (kk < S) {
-        kv = *reinterpret_cast<const uint4*>(kb + kk * ks.s + c);
-        vv = *reinterpret_cast<const uint4*>(vb + kk * vs.s + c);
-      }
-      *reinterpret_cast<uint4*>(&Ks[key][c]) = kv;
-      const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) Vt[c + j][key] = ve[j];
-    }
-    __syncthreads();
-
-    // scores for rows r0/r1 against the 64 keys of this tile
-    float s[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(&Ks[n * 8 + g][kk * 16 + 2 * t4]);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(&Ks[n * 8 + g][kk * 16 + 8 + 2 * t4]);
-        mma_bf16(s[n], qa[kk], b0, b1);
-      }
-    }
-
-    float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      const int key = kt * BK + n * 8 + 2 * t4;
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const bool ok = key + j < S;
-        s[n][j] = ok ? s[n][j] * scale_log2 : -INFINITY;
-        s[n][2 + j] = ok ? s[n][2 + j] * scale_log2 : -INFINITY;
-        mx0 = fmaxf(mx0, s[n][j]);
-        mx1 = fmaxf(mx1, s[n][2 + j]);
-      }
-    }
-#pragma unroll
-    for (int off = 1; off <= 2; off <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-    }
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float al0 = exp2f(m0 - mn0), al1 = exp2f(m1 - mn1);
-    m0 = mn0; m1 = mn1;
-    l0 *= al0; l1 *= al1;
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      oacc[n][0] *= al0; oacc[n][1] *= al0; oacc[n][2] *= al1; oacc[n][3] *= al1;
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        s[n][j] = exp2f(s[n][j] - mn0);
-        s[n][2 + j] = exp2f(s[n][2 + j] - mn1);
-        l0 += s[n][j];
-        l1 += s[n][2 + j];
-      }
-    }
-
-    // O += P V, P re-packed from the score accumulators as A fragments
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(&Vt[n * 8 + g][kk * 16 + 2 * t4]);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(&Vt[n * 8 + g][kk * 16 + 8 + 2 * t4]);
-        mma_bf16(oacc[n], pa, b0, b1);
-      }
-    }
+  for (int n = 0; n < 16; ++n) {
+    mx0 = fmaxf(mx0, fmaxf(sc[4 * n], sc[4 * n + 1]));
+    mx1 = fmaxf(mx1, fmaxf(sc[4 * n + 2], sc[4 * n + 3]));
   }
-
 #pragma unroll
   for (int off = 1; off <= 2; off <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
   }
-  if (lse != nullptr && t4 == 0) {  // row max and sum are in log2 units
-    float* lb = lse + (long long)blockIdx.y * S;
-    if (r0 < S) lb[r0] = (m0 + log2f(l0)) * LN2;
-    if (r1 < S) lb[r1] = (m1 + log2f(l1)) * LN2;
-  }
-  __nv_bfloat16* ob = o + b * os.b + h * os.h;
+  // the scale is positive, so the max of the raw scores scales to the max
+  const float mn0 = fmaxf(m0, mx0 * scale_log2), mn1 = fmaxf(m1, mx1 * scale_log2);
+  al0 = hopper::ex2(m0 - mn0);
+  al1 = hopper::ex2(m1 - mn1);
+  m0 = mn0;
+  m1 = mn1;
+  float s0 = 0.f, s1 = 0.f;
 #pragma unroll
-  for (int n = 0; n < 8; ++n) {
-    const int c = n * 8 + 2 * t4;
-    if (r0 < S)
-      *reinterpret_cast<uint32_t*>(ob + r0 * os.s + c) = pack_bf16(oacc[n][0] / l0, oacc[n][1] / l0);
-    if (r1 < S)
-      *reinterpret_cast<uint32_t*>(ob + r1 * os.s + c) = pack_bf16(oacc[n][2] / l1, oacc[n][3] / l1);
+  for (int n = 0; n < 16; ++n)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      sc[4 * n + e] = hopper::ex2(fmaf(sc[4 * n + e], scale_log2, -mn0));
+      sc[4 * n + 2 + e] = hopper::ex2(fmaf(sc[4 * n + 2 + e], scale_log2, -mn1));
+      s0 += sc[4 * n + e];
+      s1 += sc[4 * n + 2 + e];
+    }
+  l0 = l0 * al0 + s0;
+  l1 = l1 * al1 + s1;
+}
+
+__global__ void __launch_bounds__(384, 1)
+enc_attn_bf16(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+              const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o,
+              Strides os, float* __restrict__ lse, int S, int H, float scale_log2) {
+  extern __shared__ uint8_t smem_raw[];
+  FwdSmem& sm = *reinterpret_cast<FwdSmem*>(hopper::align_1024(smem_raw));
+  const int b = blockIdx.y / H, h = blockIdx.y % H, q0 = blockIdx.x * FWD_BQ;
+  const int n_tiles = (S + FWD_BK - 1) / FWD_BK;
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(&sm.q_full, 1);
+    for (int s = 0; s < FWD_STAGES; ++s) {
+      hopper::mbar_init(&sm.full[s], 1);
+      hopper::mbar_init(&sm.empty[s], 8);  // one arrival per consumer warp
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // producer warpgroup: one thread issues every TMA load
+    hopper::setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      hopper::mbar_arrive_expect_tx(&sm.q_full, TILE_BYTES);
+      hopper::tma_load(sm.q, &qmap, &sm.q_full, h, q0, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % FWD_STAGES;
+        hopper::mbar_wait(&sm.empty[s], ((j / FWD_STAGES) & 1) ^ 1);
+        hopper::mbar_arrive_expect_tx(&sm.full[s], 2 * TILE_BYTES);
+        hopper::tma_load(sm.k[s], &kmap, &sm.full[s], h, j * FWD_BK, b);
+        hopper::tma_load(sm.v[s], &vmap, &sm.full[s], h, j * FWD_BK, b);
+      }
+    }
+  } else {  // consumers: 64 query rows each
+    hopper::setmaxnreg_inc<240>();
+    const int cw = threadIdx.x / 128 - 1;  // consumer warpgroup 0 or 1
+    const int t = threadIdx.x & 127, lane = t & 31, c2 = 2 * (lane & 3);
+    const uint32_t q_addr = hopper::smem_u32(sm.q) + cw * 64 * hopper::ROW_BYTES;
+    const bool ragged = S % FWD_BK != 0;
+    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;  // rows r and r + 8
+    float al0, al1;
+    float sc[64], oacc[32];
+    uint32_t pa[8][4];  // P of the previous tile as bf16 A fragments
+#pragma unroll
+    for (int i = 0; i < 32; ++i) oacc[i] = 0.f;
+
+    // S = q K^T over the 64 dims: four k16 steps of 32 bytes along the rows
+    auto issue_scores = [&](int s) {
+      const uint32_t k_addr = hopper::smem_u32(sm.k[s]);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        hopper::wgmma_m64n128_ss(sc, hopper::desc_k_major(q_addr + 32 * kk),
+                                 hopper::desc_k_major(k_addr + 32 * kk), kk > 0);
+      hopper::wgmma_commit();
+    };
+    // O += P V: V [keys][d] read MN-major, 16 keys (2048 bytes) per k step
+    auto issue_pv = [&](int s) {
+      const uint32_t v_addr = hopper::smem_u32(sm.v[s]);
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+        hopper::wgmma_m64n64_rs(oacc, pa[kk], hopper::desc_mn_major(v_addr + 2048 * kk), 1);
+      hopper::wgmma_commit();
+    };
+    auto softmax = [&](int j) {
+      if (ragged && j == n_tiles - 1)
+        online_softmax<true>(sc, m0, m1, l0, l1, al0, al1, j * FWD_BK + c2, S, scale_log2);
+      else
+        online_softmax<false>(sc, m0, m1, l0, l1, al0, al1, 0, S, scale_log2);
+    };
+
+    const hopper::PingPong turns(cw, n_tiles);
+    hopper::mbar_wait(&sm.q_full, 0);
+    hopper::mbar_wait(&sm.full[0], 0);
+    turns.take();
+    hopper::wgmma_fence();
+    issue_scores(0);
+    turns.pass(0);
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(sc);
+    softmax(0);
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) hopper::acc_to_a(pa[kk], sc, kk);
+
+    // Tile j's scores run on the tensor cores beside tile j-1's P V; the
+    // softmax of tile j overlaps that P V.
+    for (int j = 1; j < n_tiles; ++j) {
+      const int s = j % FWD_STAGES, sp = (j - 1) % FWD_STAGES;
+      hopper::mbar_wait(&sm.full[s], (j / FWD_STAGES) & 1);
+      turns.take();
+      hopper::wgmma_fence();
+      issue_scores(s);
+      issue_pv(sp);
+      turns.pass(j);
+      hopper::wgmma_wait<1>();  // the scores (groups retire in order)
+      hopper::fence_regs(sc);
+      softmax(j);
+      hopper::wgmma_wait<0>();  // P V of tile j-1
+      hopper::fence_regs(oacc);
+      if (lane == 0) hopper::mbar_arrive(&sm.empty[sp]);
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        oacc[4 * n] *= al0;
+        oacc[4 * n + 1] *= al0;
+        oacc[4 * n + 2] *= al1;
+        oacc[4 * n + 3] *= al1;
+      }
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) hopper::acc_to_a(pa[kk], sc, kk);
+    }
+    hopper::wgmma_fence();
+    issue_pv((n_tiles - 1) % FWD_STAGES);
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(oacc);
+
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+    }
+    const int row0 = q0 + cw * 64;
+    if (lse != nullptr && (lane & 3) == 0) {  // row max and sum are in log2 units
+      const int r = row0 + (t >> 5) * 16 + (lane >> 2);
+      float* lb = lse + (long long)blockIdx.y * S;
+      if (r < S) lb[r] = (m0 + log2f(l0)) * LN2;
+      if (r + 8 < S) lb[r + 8] = (m1 + log2f(l1)) * LN2;
+    }
+    hopper::store_rows(o + b * os.b + h * os.h, os.s, row0, S, oacc, 1.f / l0, 1.f / l1);
   }
 }
 
@@ -258,7 +306,8 @@ enc_attn_f32(const float* __restrict__ q, Strides qs,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Strides are in elements; the head dim
-// is contiguous and must be 64. lse: fp32 [B, H, S] or null.
+// is contiguous and must be 64 (bf16: strides multiples of 8 elements, base
+// 16-byte aligned, as the tensor maps need). lse: fp32 [B, H, S] or null.
 extern "C" int twt_encoder_attention(
     int dtype, int B, int S, int H,
     const void* q, long long qsb, long long qss, long long qsh,
@@ -270,10 +319,17 @@ extern "C" int twt_encoder_attention(
   const float scale_log2 = scale * 1.4426950408889634f;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 1) {
-    dim3 grid((S + BQ - 1) / BQ, B * H);
-    enc_attn_bf16<<<grid, 128, 0, st>>>(
-        (const __nv_bfloat16*)q, qs, (const __nv_bfloat16*)k, ks,
-        (const __nv_bfloat16*)v, vs, (__nv_bfloat16*)o, os, lse, S, H, scale_log2);
+    CUtensorMap qm, km, vm;
+    int err = hopper::make_map(&qm, q, B, S, H, qs, FWD_BQ);
+    if (!err) err = hopper::make_map(&km, k, B, S, H, ks, FWD_BK);
+    if (!err) err = hopper::make_map(&vm, v, B, S, H, vs, FWD_BK);
+    static const int smem = (int)cudaFuncSetAttribute(
+        enc_attn_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize, FWD_SMEM);
+    if (!err) err = smem;
+    if (err) return err;
+    dim3 grid((S + FWD_BQ - 1) / FWD_BQ, B * H);
+    enc_attn_bf16<<<grid, 384, FWD_SMEM, st>>>(qm, km, vm, (__nv_bfloat16*)o, os, lse, S, H,
+                                               scale_log2);
   } else if (dtype == 0) {
     dim3 grid((S + F_ROWS - 1) / F_ROWS, B * H);
     enc_attn_f32<<<grid, F_ROWS, 0, st>>>(

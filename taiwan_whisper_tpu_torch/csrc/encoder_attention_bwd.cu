@@ -7,347 +7,386 @@
 // (encoder_attention.cu) and dO, all [B, S, H, 64] read through their
 // strides (LSE fp32 [B, H, S]), it writes dq, dk, dv:
 //
-//   D  = rowsum(dO * O)                      (fp32, one warp per row)
+//   D  = rowsum(dO * O)                      (fp32)
 //   P  = exp(q k^T * scale - LSE)            (recomputed per tile)
 //   dV = P^T dO,   dP = dO V^T,   dS = P * (dP - D)
 //   dK = dS^T q * scale,   dQ = dS k * scale
 //
-// Bound: operations. 5 products of 2*S^2*64 flop per (b, h) (S, P V's
-// twin dP, and one each for dV, dK, dQ; the dK/dV kernel and the dQ
-// kernel each recompute S): 10*S^2*64*2 flop counted as the work, against
-// ~8 tensors of B*S*H*64 bf16, far above the card's flop-per-byte ridge.
+// Bound: operations. The algorithm needs 5 products of 2*S^2*64 flop per
+// (b, h): S, dP, dV, dK, dQ, 10*S^2*64 flop (0.233 ms of bf16 tensor-core
+// time at [8, 1500, 20, 64]), against ~8 tensors of B*S*H*64 bf16, far
+// above the card's flop-per-byte ridge. This design runs 7: the dK/dV
+// kernel and the dQ kernel each recompute S, and the dQ kernel recomputes
+// dP, so the best it can reach is 7/5 of the bound.
 //
-// Design (FlashAttention-2's backward, deterministic): no atomics. The dK/dV
-// kernel runs one block per (b, h, 64-key tile), four warps of 16 keys;
-// k and v fragments stay in registers, q and dO tiles of 64 rows stream
-// through shared memory in both layouts (row-major for the products that
-// reduce over d, transposed for those that reduce over queries), and
-// dK/dV accumulate in registers. The dQ kernel runs one block per (b, h,
-// 64-query tile) the same way with k and v streaming. Products are
-// mma.sync.m16n8k16 bf16 with fp32 accumulation; P and dS are rounded to
-// bf16 as mma operands. The ragged tile (1500 = 23*64 + 28) is masked in
-// registers: keys past S give P = 0 in the dQ kernel and their dK/dV rows
-// are not written; queries past S give P = 0 in the dK/dV kernel. So the
-// backward is three launches (D, dK/dV, dQ).
+// Design (deterministic: no atomics, every gradient row written by one
+// block), on the pieces of hopper_attention.cuh (TMA with 128-byte
+// swizzle, an mbarrier ring, wgmma, setmaxnreg 24 / 240):
+// * bwd_rowdot_bf16: D, memory-bound, 16-byte loads.
+// * dK/dV kernel, one block per (b, h, 128 keys): the K and V tiles are
+//   TMA-loaded once; a producer warp streams q and dO tiles of 128
+//   queries (TMA) with their LSE (times log2 e; +inf past S, so P = 0
+//   there) and D (0 past S) into a ring of STAGES stages. Two consumer
+//   warpgroups of 64 keys each compute everything transposed, so nothing
+//   in shared memory is ever transposed: S^T = K q^T and dP^T = V dO^T
+//   (wgmma m64n128k16, operands K-major from shared memory), P^T = exp2(S^T *
+//   scale * log2 e - LSE * log2 e), dS^T = P^T (dP^T - D), then dV += P^T
+//   dO and dK += dS^T q with P^T and dS^T packed to bf16 in registers as
+//   the A operand and dO, q read MN-major through the transpose bit.
+// * dQ kernel, one block per (b, h, 128 queries): q and dO TMA-loaded
+//   once, LSE and D read once into registers; K/V tiles of 128 keys
+//   stream through the ring; S = q K^T and dP = dO V^T from shared memory
+//   (wgmma m64n128k16), P
+//   (keys past S masked to 0), dS = P (dP - D), dQ += dS K with dS from
+//   registers and K read MN-major.
+// Rows past S are zero-filled by TMA and never stored. The backward is
+// three launches (D, dK/dV, dQ). The dQ kernel issues tile j's S and dP
+// beside tile j-1's dQ product and ping-pongs its two consumer warpgroups
+// as the forward does, which made it faster; the dK/dV kernel was no
+// faster that way and keeps the plain order (PERF.md).
 //
 // fp32 variant: plain SIMT loops (one thread per key row, one per query
 // row) so the fp32 policy differentiates on the card too; it serves parity
 // checks, not speed.
 
-#include <cuda_runtime.h>
 #include <math.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+
+#include "hopper_attention.cuh"
 
 namespace {
 
-constexpr int D = 64;        // head dim
-constexpr int BT = 64;       // rows (keys or queries) per block, 4 warps x 16
-constexpr int LDS = BT + 8;  // padded shared row (bf16)
+using hopper::D;
+using hopper::Strides;
 constexpr float LOG2E = 1.4426950408889634f;
 
-struct Strides { long long b, s, h; };
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// A fragments (m16 x k16, 4 steps over d) of 16 rows starting at row r0:
-// rows g and g + 8 of this warp, zero past S.
-__device__ __forceinline__ void load_a_frags(uint32_t a[4][4], const __nv_bfloat16* base,
-                                             long long stride, int r0, int r1, int S, int t4) {
+// D[(b*H + h)*S + s] = sum_d dO * O in fp32. bf16: eight threads of
+// 16-byte loads per row; fp32: one warp per row.
+__global__ void __launch_bounds__(256)
+bwd_rowdot_bf16(const __nv_bfloat16* __restrict__ o, Strides os,
+                const __nv_bfloat16* __restrict__ dout, Strides ds, float* __restrict__ Dout,
+                int S, int H, long long rows) {
+  const long long row = (long long)blockIdx.x * 32 + threadIdx.x / 8;
+  const int part = threadIdx.x & 7;  // columns 8 part .. 8 part + 7
+  float acc = 0.f;
+  if (row < rows) {
+    const int s = (int)(row % S);
+    const long long bh = row / S;
+    const int b = (int)(bh / H), h = (int)(bh % H);
+    const uint4 ov = *reinterpret_cast<const uint4*>(o + b * os.b + h * os.h + s * os.s +
+                                                     8 * part);
+    const uint4 dv = *reinterpret_cast<const uint4*>(dout + b * ds.b + h * ds.h + s * ds.s +
+                                                     8 * part);
+    const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+    const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const int c = kk * 16 + 2 * t4;
-    a[kk][0] = r0 < S ? ld32(base + r0 * stride + c) : 0u;
-    a[kk][1] = r1 < S ? ld32(base + r1 * stride + c) : 0u;
-    a[kk][2] = r0 < S ? ld32(base + r0 * stride + c + 8) : 0u;
-    a[kk][3] = r1 < S ? ld32(base + r1 * stride + c + 8) : 0u;
-  }
-}
-
-// Stage a 64-row tile of a [S, 64] head slice into shared memory, row-major
-// (rows x d) and, when `trans` is given, transposed (d x rows); zero past S.
-__device__ __forceinline__ void stage_tile(__nv_bfloat16 (*rows)[LDS], __nv_bfloat16 (*trans)[LDS],
-                                           const __nv_bfloat16* base, long long stride,
-                                           int row0, int S) {
-  for (int i = threadIdx.x; i < BT * D / 8; i += blockDim.x) {
-    const int r = i / (D / 8), c = (i % (D / 8)) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < S) val = *reinterpret_cast<const uint4*>(base + (row0 + r) * stride + c);
-    *reinterpret_cast<uint4*>(&rows[r][c]) = val;
-    if (trans != nullptr) {
-      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&val);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) trans[c + j][r] = e[j];
+    for (int i = 0; i < 4; ++i) {
+      const float2 a = __bfloat1622float2(o2[i]), c = __bfloat1622float2(d2[i]);
+      acc = fmaf(a.x, c.x, fmaf(a.y, c.y, acc));
     }
   }
+#pragma unroll
+  for (int off = 4; off >= 1; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (row < rows && part == 0) Dout[row] = acc;
 }
 
-// D[(b*H + h)*S + s] = sum_d dO * O in fp32; one warp per row.
-template <typename T>
 __global__ void __launch_bounds__(256)
-bwd_rowdot(const T* __restrict__ o, Strides os, const T* __restrict__ dout, Strides ds,
-           float* __restrict__ Dout, int S, int H, long long rows) {
+bwd_rowdot_f32(const float* __restrict__ o, Strides os, const float* __restrict__ dout,
+               Strides ds, float* __restrict__ Dout, int S, int H, long long rows) {
   const long long row = (long long)blockIdx.x * 8 + threadIdx.x / 32;
   const int lane = threadIdx.x & 31;
   if (row >= rows) return;
   const int s = (int)(row % S);
   const long long bh = row / S;
   const int b = (int)(bh / H), h = (int)(bh % H);
-  const T* op = o + b * os.b + h * os.h + s * os.s;
-  const T* dp = dout + b * ds.b + h * ds.h + s * ds.s;
-  float acc = to_f(op[lane]) * to_f(dp[lane]) + to_f(op[lane + 32]) * to_f(dp[lane + 32]);
+  const float* op = o + b * os.b + h * os.h + s * os.s;
+  const float* dp = dout + b * ds.b + h * ds.h + s * ds.s;
+  float acc = op[lane] * dp[lane] + op[lane + 32] * dp[lane + 32];
 #pragma unroll
   for (int off = 16; off >= 1; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
   if (lane == 0) Dout[row] = acc;
 }
 
-__global__ void __launch_bounds__(128)
-bwd_dkdv_bf16(const __nv_bfloat16* __restrict__ q, Strides qs,
-              const __nv_bfloat16* __restrict__ k, Strides ks,
-              const __nv_bfloat16* __restrict__ v, Strides vs,
-              const __nv_bfloat16* __restrict__ dout, Strides dos,
+// Rows of every tile: a block's keys (dK/dV) or queries (dQ), two consumer
+// warpgroups of 64, and each streamed tile of queries or keys.
+constexpr int BT = 128;
+constexpr int STAGES = 3;      // ring depth of the streamed tiles
+constexpr int WG_ROWS = 64;    // rows of one consumer warpgroup
+constexpr int WG_BYTES = WG_ROWS * D * 2;  // its 64 rows of a tile: 8 KB
+
+struct KvSmem {
+  __nv_bfloat16 k[BT * D], v[BT * D];
+  __nv_bfloat16 q[STAGES][BT * D], dout[STAGES][BT * D];
+  float lse[STAGES][BT], drow[STAGES][BT];
+  uint64_t kv_full, full[STAGES], empty[STAGES];
+};
+constexpr int KV_SMEM = sizeof(KvSmem) + 1024;
+
+struct DqSmem {
+  __nv_bfloat16 q[BT * D], dout[BT * D];
+  __nv_bfloat16 k[STAGES][BT * D], v[STAGES][BT * D];
+  uint64_t q_full, full[STAGES], empty[STAGES];
+};
+constexpr int DQ_SMEM = sizeof(DqSmem) + 1024;
+
+__global__ void __launch_bounds__(384, 1)
+bwd_dkdv_bf16(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+              const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap dmap,
               const float* __restrict__ lse, const float* __restrict__ Drow,
               __nv_bfloat16* __restrict__ dk, Strides dks,
               __nv_bfloat16* __restrict__ dv, Strides dvs,
               int S, int H, float scale_log2, float scale) {
-  __shared__ __align__(16) __nv_bfloat16 Qs[BT][LDS];   // [query][d]
-  __shared__ __align__(16) __nv_bfloat16 Qt[D][LDS];    // [d][query]
-  __shared__ __align__(16) __nv_bfloat16 dOs[BT][LDS];  // [query][d]
-  __shared__ __align__(16) __nv_bfloat16 dOt[D][LDS];   // [d][query]
-  __shared__ float Ls[BT], Ds[BT];
-
-  const int b = blockIdx.y / H, h = blockIdx.y % H;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int c0 = blockIdx.x * BT + warp * 16 + g, c1 = c0 + 8;  // this thread's key rows
-
-  const __nv_bfloat16* qb = q + b * qs.b + h * qs.h;
-  const __nv_bfloat16* dob = dout + b * dos.b + h * dos.h;
-  const float* lb = lse + (long long)blockIdx.y * S;
-  const float* db = Drow + (long long)blockIdx.y * S;
-
-  uint32_t ka[4][4], va[4][4];
-  load_a_frags(ka, k + b * ks.b + h * ks.h, ks.s, c0, c1, S, t4);
-  load_a_frags(va, v + b * vs.b + h * vs.h, vs.s, c0, c1, S, t4);
-
-  float dka[8][4], dva[8][4];
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) dka[n][j] = dva[n][j] = 0.f;
-
+  extern __shared__ uint8_t smem_raw[];
+  KvSmem& sm = *reinterpret_cast<KvSmem*>(hopper::align_1024(smem_raw));
+  const int b = blockIdx.y / H, h = blockIdx.y % H, k0 = blockIdx.x * BT;
   const int n_tiles = (S + BT - 1) / BT;
-  for (int qt = 0; qt < n_tiles; ++qt) {
-    const int q0 = qt * BT;
-    __syncthreads();
-    stage_tile(Qs, Qt, qb, qs.s, q0, S);
-    stage_tile(dOs, dOt, dob, dos.s, q0, S);
-    for (int i = threadIdx.x; i < BT; i += blockDim.x) {
-      const bool ok = q0 + i < S;
-      Ls[i] = ok ? lb[q0 + i] * LOG2E : INFINITY;  // +inf: P = 0 past S
-      Ds[i] = ok ? db[q0 + i] : 0.f;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(&sm.kv_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&sm.full[s], 32);  // every lane of the producer warp
+      hopper::mbar_init(&sm.empty[s], 8);  // one arrival per consumer warp
     }
-    __syncthreads();
-
-    // S^T = K Q^T for this warp's 16 keys x 64 queries, then P^T
-    float p[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n) p[n][0] = p[n][1] = p[n][2] = p[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-        mma_bf16(p[n], ka[kk], ld32(&Qs[n * 8 + g][kk * 16 + 2 * t4]),
-                 ld32(&Qs[n * 8 + g][kk * 16 + 8 + 2 * t4]));
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const float L = Ls[n * 8 + 2 * t4 + j];
-        p[n][j] = exp2f(p[n][j] * scale_log2 - L);
-        p[n][2 + j] = exp2f(p[n][2 + j] * scale_log2 - L);
-      }
-
-    // dV += P^T dO (k = query: dO read transposed)
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const uint32_t pa[4] = {pack_bf16(p[2 * kk][0], p[2 * kk][1]),
-                              pack_bf16(p[2 * kk][2], p[2 * kk][3]),
-                              pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
-                              pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-        mma_bf16(dva[n], pa, ld32(&dOt[n * 8 + g][kk * 16 + 2 * t4]),
-                 ld32(&dOt[n * 8 + g][kk * 16 + 8 + 2 * t4]));
-    }
-
-    // dP^T = V dO^T, then dS^T = P^T (dP^T - D)
-    float ds[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n) ds[n][0] = ds[n][1] = ds[n][2] = ds[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-        mma_bf16(ds[n], va[kk], ld32(&dOs[n * 8 + g][kk * 16 + 2 * t4]),
-                 ld32(&dOs[n * 8 + g][kk * 16 + 8 + 2 * t4]));
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const float Dq = Ds[n * 8 + 2 * t4 + j];
-        ds[n][j] = p[n][j] * (ds[n][j] - Dq);
-        ds[n][2 + j] = p[n][2 + j] * (ds[n][2 + j] - Dq);
-      }
-
-    // dK += dS^T Q (k = query: q read transposed)
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const uint32_t sa[4] = {pack_bf16(ds[2 * kk][0], ds[2 * kk][1]),
-                              pack_bf16(ds[2 * kk][2], ds[2 * kk][3]),
-                              pack_bf16(ds[2 * kk + 1][0], ds[2 * kk + 1][1]),
-                              pack_bf16(ds[2 * kk + 1][2], ds[2 * kk + 1][3])};
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-        mma_bf16(dka[n], sa, ld32(&Qt[n * 8 + g][kk * 16 + 2 * t4]),
-                 ld32(&Qt[n * 8 + g][kk * 16 + 8 + 2 * t4]));
-    }
+    hopper::mbar_fence_init();
   }
+  __syncthreads();
 
-  __nv_bfloat16* dkb = dk + b * dks.b + h * dks.h;
-  __nv_bfloat16* dvb = dv + b * dvs.b + h * dvs.h;
+  if (threadIdx.x < 128) {  // producer warp: TMA for the tiles, plain loads for LSE and D
+    hopper::setmaxnreg_dec<24>();
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      const float* lb = lse + (long long)blockIdx.y * S;
+      const float* db = Drow + (long long)blockIdx.y * S;
+      if (lane == 0) {
+        hopper::mbar_arrive_expect_tx(&sm.kv_full, 2 * BT * D * 2);
+        hopper::tma_load(sm.k, &kmap, &sm.kv_full, h, k0, b);
+        hopper::tma_load(sm.v, &vmap, &sm.kv_full, h, k0, b);
+      }
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % STAGES, q0 = j * BT;
+        hopper::mbar_wait(&sm.empty[s], ((j / STAGES) & 1) ^ 1);
+        if (lane == 0) {
+          hopper::mbar_expect_tx(&sm.full[s], 2 * BT * D * 2);
+          hopper::tma_load(sm.q[s], &qmap, &sm.full[s], h, q0, b);
+          hopper::tma_load(sm.dout[s], &dmap, &sm.full[s], h, q0, b);
+        }
 #pragma unroll
-  for (int n = 0; n < 8; ++n) {
-    const int c = n * 8 + 2 * t4;
-    if (c0 < S) {
-      *reinterpret_cast<uint32_t*>(dkb + c0 * dks.s + c) = pack_bf16(dka[n][0] * scale, dka[n][1] * scale);
-      *reinterpret_cast<uint32_t*>(dvb + c0 * dvs.s + c) = pack_bf16(dva[n][0], dva[n][1]);
+        for (int i = lane; i < BT; i += 32) {
+          const bool ok = q0 + i < S;
+          sm.lse[s][i] = ok ? lb[q0 + i] * LOG2E : INFINITY;
+          sm.drow[s][i] = ok ? db[q0 + i] : 0.f;
+        }
+        hopper::mbar_arrive(&sm.full[s]);
+      }
     }
-    if (c1 < S) {
-      *reinterpret_cast<uint32_t*>(dkb + c1 * dks.s + c) = pack_bf16(dka[n][2] * scale, dka[n][3] * scale);
-      *reinterpret_cast<uint32_t*>(dvb + c1 * dvs.s + c) = pack_bf16(dva[n][2], dva[n][3]);
+  } else {  // consumers: 64 keys each
+    hopper::setmaxnreg_inc<240>();
+    const int cw = threadIdx.x / 128 - 1;  // consumer warpgroup 0 or 1
+    const int t = threadIdx.x & 127, lane = t & 31, c2 = 2 * (lane & 3);
+    const uint32_t k_addr = hopper::smem_u32(sm.k) + cw * WG_BYTES;
+    const uint32_t v_addr = hopper::smem_u32(sm.v) + cw * WG_BYTES;
+    float dka[32], dva[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dka[i] = dva[i] = 0.f;
+
+    hopper::mbar_wait(&sm.kv_full, 0);
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % STAGES;
+      hopper::mbar_wait(&sm.full[s], (j / STAGES) & 1);
+      const uint32_t q_addr = hopper::smem_u32(sm.q[s]), d_addr = hopper::smem_u32(sm.dout[s]);
+
+      // S^T = K q^T and dP^T = V dO^T: [64 keys x 128 queries] each
+      float st[64], dpt[64];
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        hopper::wgmma_m64n128_ss(st, hopper::desc_k_major(k_addr + 32 * kk),
+                                hopper::desc_k_major(q_addr + 32 * kk), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        hopper::wgmma_m64n128_ss(dpt, hopper::desc_k_major(v_addr + 32 * kk),
+                                hopper::desc_k_major(d_addr + 32 * kk), kk > 0);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(st);
+      hopper::fence_regs(dpt);
+
+      // P^T and dS^T; the query is the column: 8n + c2 + e
+#pragma unroll
+      for (int n = 0; n < 16; ++n) {
+        const float2 L = *reinterpret_cast<const float2*>(&sm.lse[s][8 * n + c2]);
+        const float2 Dq = *reinterpret_cast<const float2*>(&sm.drow[s][8 * n + c2]);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int i = 4 * n + 2 * r;
+          st[i] = hopper::ex2(fmaf(st[i], scale_log2, -L.x));
+          st[i + 1] = hopper::ex2(fmaf(st[i + 1], scale_log2, -L.y));
+          dpt[i] = st[i] * (dpt[i] - Dq.x);
+          dpt[i + 1] = st[i + 1] * (dpt[i + 1] - Dq.y);
+        }
+      }
+
+      // dV += P^T dO and dK += dS^T q: k = query, 16 queries (2048 bytes)
+      // per step, dO and q read MN-major
+      uint32_t pa[8][4], sa[8][4];
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        hopper::acc_to_a(pa[kk], st, kk);
+        hopper::acc_to_a(sa[kk], dpt, kk);
+      }
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+        hopper::wgmma_m64n64_rs(dva, pa[kk], hopper::desc_mn_major(d_addr + 2048 * kk), 1);
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+        hopper::wgmma_m64n64_rs(dka, sa[kk], hopper::desc_mn_major(q_addr + 2048 * kk), 1);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dva);
+      hopper::fence_regs(dka);
+      if (lane == 0) hopper::mbar_arrive(&sm.empty[s]);
     }
+    const int row0 = k0 + cw * WG_ROWS;
+    hopper::store_rows(dk + b * dks.b + h * dks.h, dks.s, row0, S, dka, scale, scale);
+    hopper::store_rows(dv + b * dvs.b + h * dvs.h, dvs.s, row0, S, dva, 1.f, 1.f);
   }
 }
 
-__global__ void __launch_bounds__(128)
-bwd_dq_bf16(const __nv_bfloat16* __restrict__ q, Strides qs,
-            const __nv_bfloat16* __restrict__ k, Strides ks,
-            const __nv_bfloat16* __restrict__ v, Strides vs,
-            const __nv_bfloat16* __restrict__ dout, Strides dos,
+__global__ void __launch_bounds__(384, 1)
+bwd_dq_bf16(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+            const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap dmap,
             const float* __restrict__ lse, const float* __restrict__ Drow,
             __nv_bfloat16* __restrict__ dq, Strides dqs,
             int S, int H, float scale_log2, float scale) {
-  __shared__ __align__(16) __nv_bfloat16 Ks[BT][LDS];  // [key][d]
-  __shared__ __align__(16) __nv_bfloat16 Kt[D][LDS];   // [d][key]
-  __shared__ __align__(16) __nv_bfloat16 Vs[BT][LDS];  // [key][d]
-
-  const int b = blockIdx.y / H, h = blockIdx.y % H;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int r0 = blockIdx.x * BT + warp * 16 + g, r1 = r0 + 8;  // this thread's query rows
-
-  const __nv_bfloat16* kb = k + b * ks.b + h * ks.h;
-  const __nv_bfloat16* vb = v + b * vs.b + h * vs.h;
-  const float* lb = lse + (long long)blockIdx.y * S;
-  const float* db = Drow + (long long)blockIdx.y * S;
-
-  uint32_t qa[4][4], da[4][4];
-  load_a_frags(qa, q + b * qs.b + h * qs.h, qs.s, r0, r1, S, t4);
-  load_a_frags(da, dout + b * dos.b + h * dos.h, dos.s, r0, r1, S, t4);
-  // rows past S have q = dO = 0, so dS = 0 there whatever L and D are
-  const float L0 = r0 < S ? lb[r0] * LOG2E : 0.f, L1 = r1 < S ? lb[r1] * LOG2E : 0.f;
-  const float D0 = r0 < S ? db[r0] : 0.f, D1 = r1 < S ? db[r1] : 0.f;
-
-  float dqa[8][4];
-#pragma unroll
-  for (int n = 0; n < 8; ++n) dqa[n][0] = dqa[n][1] = dqa[n][2] = dqa[n][3] = 0.f;
-
+  extern __shared__ uint8_t smem_raw[];
+  DqSmem& sm = *reinterpret_cast<DqSmem*>(hopper::align_1024(smem_raw));
+  const int b = blockIdx.y / H, h = blockIdx.y % H, q0 = blockIdx.x * BT;
   const int n_tiles = (S + BT - 1) / BT;
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * BT;
-    __syncthreads();
-    stage_tile(Ks, Kt, kb, ks.s, k0, S);
-    stage_tile(Vs, nullptr, vb, vs.s, k0, S);
-    __syncthreads();
 
-    // S = Q K^T for this warp's 16 queries x 64 keys, then P (keys past S: 0)
-    float p[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n) p[n][0] = p[n][1] = p[n][2] = p[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-        mma_bf16(p[n], qa[kk], ld32(&Ks[n * 8 + g][kk * 16 + 2 * t4]),
-                 ld32(&Ks[n * 8 + g][kk * 16 + 8 + 2 * t4]));
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const bool ok = k0 + n * 8 + 2 * t4 + j < S;
-        p[n][j] = ok ? exp2f(p[n][j] * scale_log2 - L0) : 0.f;
-        p[n][2 + j] = ok ? exp2f(p[n][2 + j] * scale_log2 - L1) : 0.f;
-      }
-
-    // dP = dO V^T, then dS = P (dP - D)
-    float ds[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n) ds[n][0] = ds[n][1] = ds[n][2] = ds[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-        mma_bf16(ds[n], da[kk], ld32(&Vs[n * 8 + g][kk * 16 + 2 * t4]),
-                 ld32(&Vs[n * 8 + g][kk * 16 + 8 + 2 * t4]));
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        ds[n][j] = p[n][j] * (ds[n][j] - D0);
-        ds[n][2 + j] = p[n][2 + j] * (ds[n][2 + j] - D1);
-      }
-
-    // dQ += dS K (k = key: k read transposed)
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const uint32_t sa[4] = {pack_bf16(ds[2 * kk][0], ds[2 * kk][1]),
-                              pack_bf16(ds[2 * kk][2], ds[2 * kk][3]),
-                              pack_bf16(ds[2 * kk + 1][0], ds[2 * kk + 1][1]),
-                              pack_bf16(ds[2 * kk + 1][2], ds[2 * kk + 1][3])};
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-        mma_bf16(dqa[n], sa, ld32(&Kt[n * 8 + g][kk * 16 + 2 * t4]),
-                 ld32(&Kt[n * 8 + g][kk * 16 + 8 + 2 * t4]));
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(&sm.q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&sm.full[s], 1);
+      hopper::mbar_init(&sm.empty[s], 8);
     }
+    hopper::mbar_fence_init();
   }
+  __syncthreads();
 
-  __nv_bfloat16* dqb = dq + b * dqs.b + h * dqs.h;
+  if (threadIdx.x < 128) {  // producer: one thread issues every TMA load
+    hopper::setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      hopper::mbar_arrive_expect_tx(&sm.q_full, 2 * BT * D * 2);
+      hopper::tma_load(sm.q, &qmap, &sm.q_full, h, q0, b);
+      hopper::tma_load(sm.dout, &dmap, &sm.q_full, h, q0, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % STAGES;
+        hopper::mbar_wait(&sm.empty[s], ((j / STAGES) & 1) ^ 1);
+        hopper::mbar_arrive_expect_tx(&sm.full[s], 2 * BT * D * 2);
+        hopper::tma_load(sm.k[s], &kmap, &sm.full[s], h, j * BT, b);
+        hopper::tma_load(sm.v[s], &vmap, &sm.full[s], h, j * BT, b);
+      }
+    }
+  } else {  // consumers: 64 queries each
+    hopper::setmaxnreg_inc<240>();
+    const int cw = threadIdx.x / 128 - 1;  // consumer warpgroup 0 or 1
+    const int t = threadIdx.x & 127, lane = t & 31, c2 = 2 * (lane & 3);
+    const int row0 = q0 + cw * WG_ROWS, r = row0 + (t >> 5) * 16 + (lane >> 2);
+    const uint32_t q_addr = hopper::smem_u32(sm.q) + cw * WG_BYTES;
+    const uint32_t d_addr = hopper::smem_u32(sm.dout) + cw * WG_BYTES;
+    // rows past S have q = dO = 0 (zero fill), so dS = 0 there whatever L and D are
+    const float* lb = lse + (long long)blockIdx.y * S;
+    const float* db = Drow + (long long)blockIdx.y * S;
+    const float L0 = r < S ? lb[r] * LOG2E : 0.f, L1 = r + 8 < S ? lb[r + 8] * LOG2E : 0.f;
+    const float D0 = r < S ? db[r] : 0.f, D1 = r + 8 < S ? db[r + 8] : 0.f;
+    float dqa[32];
 #pragma unroll
-  for (int n = 0; n < 8; ++n) {
-    const int c = n * 8 + 2 * t4;
-    if (r0 < S)
-      *reinterpret_cast<uint32_t*>(dqb + r0 * dqs.s + c) = pack_bf16(dqa[n][0] * scale, dqa[n][1] * scale);
-    if (r1 < S)
-      *reinterpret_cast<uint32_t*>(dqb + r1 * dqs.s + c) = pack_bf16(dqa[n][2] * scale, dqa[n][3] * scale);
+    for (int i = 0; i < 32; ++i) dqa[i] = 0.f;
+
+    float sc[64], dp[64];
+    uint32_t sa[8][4];  // dS of the previous tile as bf16 A fragments
+    // S = q K^T and dP = dO V^T: [64 queries x 128 keys] each
+    auto issue_scores = [&](int s) {
+      const uint32_t k_addr = hopper::smem_u32(sm.k[s]), v_addr = hopper::smem_u32(sm.v[s]);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        hopper::wgmma_m64n128_ss(sc, hopper::desc_k_major(q_addr + 32 * kk),
+                                hopper::desc_k_major(k_addr + 32 * kk), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        hopper::wgmma_m64n128_ss(dp, hopper::desc_k_major(d_addr + 32 * kk),
+                                hopper::desc_k_major(v_addr + 32 * kk), kk > 0);
+      hopper::wgmma_commit();
+    };
+    // dQ += dS K: k = key, 16 keys (2048 bytes) per step, K read MN-major
+    auto issue_dq = [&](int s) {
+      const uint32_t k_addr = hopper::smem_u32(sm.k[s]);
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+        hopper::wgmma_m64n64_rs(dqa, sa[kk], hopper::desc_mn_major(k_addr + 2048 * kk), 1);
+      hopper::wgmma_commit();
+    };
+    // dS = P (dP - D) in place of dP; keys past S (the ragged last tile) give P = 0
+    auto grad_scores = [&](int j) {
+      if (j * BT + BT > S) {
+        const int key0 = j * BT + c2;
+#pragma unroll
+        for (int n = 0; n < 16; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (key0 + 8 * n + e >= S) sc[4 * n + e] = sc[4 * n + 2 + e] = -INFINITY;
+      }
+#pragma unroll
+      for (int n = 0; n < 16; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * n + e;
+          dp[i] = hopper::ex2(fmaf(sc[i], scale_log2, -L0)) * (dp[i] - D0);
+          dp[i + 2] = hopper::ex2(fmaf(sc[i + 2], scale_log2, -L1)) * (dp[i + 2] - D1);
+        }
+    };
+    auto pack_ds = [&] {
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) hopper::acc_to_a(sa[kk], dp, kk);
+    };
+
+    // As in the forward: tile j's S and dP are issued beside tile j-1's dQ
+    // product (so tile j's dS overlaps it), and the two consumer
+    // warpgroups take turns to issue.
+    const hopper::PingPong turns(cw, n_tiles);
+    hopper::mbar_wait(&sm.q_full, 0);
+    hopper::mbar_wait(&sm.full[0], 0);
+    turns.take();
+    hopper::wgmma_fence();
+    issue_scores(0);
+    turns.pass(0);
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(sc);
+    hopper::fence_regs(dp);
+    grad_scores(0);
+    pack_ds();
+    for (int j = 1; j < n_tiles; ++j) {
+      const int s = j % STAGES, sp = (j - 1) % STAGES;
+      hopper::mbar_wait(&sm.full[s], (j / STAGES) & 1);
+      turns.take();
+      hopper::wgmma_fence();
+      issue_scores(s);
+      issue_dq(sp);
+      turns.pass(j);
+      hopper::wgmma_wait<1>();  // S and dP (groups retire in order)
+      hopper::fence_regs(sc);
+      hopper::fence_regs(dp);
+      grad_scores(j);
+      hopper::wgmma_wait<0>();  // dQ of tile j-1, which reads the A fragments
+      hopper::fence_regs(dqa);
+      if (lane == 0) hopper::mbar_arrive(&sm.empty[sp]);
+      pack_ds();
+    }
+    hopper::wgmma_fence();
+    issue_dq((n_tiles - 1) % STAGES);
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(dqa);
+    hopper::store_rows(dq + b * dqs.b + h * dqs.h, dqs.s, row0, S, dqa, scale, scale);
   }
 }
 
@@ -472,8 +511,10 @@ bwd_dq_f32(const float* __restrict__ q, Strides qs, const float* __restrict__ k,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Tensors [B, S, H, 64] with strides in
-// elements (head dim contiguous); lse fp32 [B, H, S] from the forward;
-// Dbuf fp32 scratch of B*H*S. Launches D, dK/dV, dQ on `stream`.
+// elements (head dim contiguous; bf16: strides multiples of 8 elements,
+// bases 16-byte aligned, as the tensor maps need); lse fp32 [B, H, S] from
+// the forward; Dbuf fp32 scratch of B*H*S. Launches D, dK/dV, dQ on
+// `stream`.
 extern "C" int twt_encoder_attention_bwd(
     int dtype, int B, int S, int H,
     const void* q, long long qsb, long long qss, long long qsh,
@@ -491,24 +532,34 @@ extern "C" int twt_encoder_attention_bwd(
   const float scale_log2 = scale * LOG2E;
   cudaStream_t st = (cudaStream_t)stream;
   const long long rows = (long long)B * H * S;
-  const dim3 rgrid((unsigned)((rows + 7) / 8));
   if (dtype == 1) {
     typedef __nv_bfloat16 T;
-    bwd_rowdot<T><<<rgrid, 256, 0, st>>>((const T*)o, os, (const T*)dout, ds, Dbuf, S, H, rows);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    const dim3 grid((S + BT - 1) / BT, B * H);
-    bwd_dkdv_bf16<<<grid, 128, 0, st>>>((const T*)q, qs, (const T*)k, ks, (const T*)v, vs,
-                                        (const T*)dout, ds, lse, Dbuf, (T*)dk, dks, (T*)dv, dvs,
-                                        S, H, scale_log2, scale);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    bwd_dq_bf16<<<grid, 128, 0, st>>>((const T*)q, qs, (const T*)k, ks, (const T*)v, vs,
-                                      (const T*)dout, ds, lse, Dbuf, (T*)dq, dqs,
-                                      S, H, scale_log2, scale);
+    // one map each for q, dO, K and V: every tile either kernel loads or
+    // streams is BT rows
+    CUtensorMap qm, dm, km, vm;
+    int err = hopper::make_map(&qm, q, B, S, H, qs, BT);
+    if (!err) err = hopper::make_map(&dm, dout, B, S, H, ds, BT);
+    if (!err) err = hopper::make_map(&km, k, B, S, H, ks, BT);
+    if (!err) err = hopper::make_map(&vm, v, B, S, H, vs, BT);
+    static const int kv_smem = (int)cudaFuncSetAttribute(
+        bwd_dkdv_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize, KV_SMEM);
+    static const int dq_smem = (int)cudaFuncSetAttribute(
+        bwd_dq_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize, DQ_SMEM);
+    if (!err) err = kv_smem ? kv_smem : dq_smem;
+    if (err) return err;
+    bwd_rowdot_bf16<<<(unsigned)((rows + 31) / 32), 256, 0, st>>>(
+        (const T*)o, os, (const T*)dout, ds, Dbuf, S, H, rows);
+    err = (int)cudaGetLastError();
+    if (err) return err;
+    bwd_dkdv_bf16<<<dim3((S + BT - 1) / BT, B * H), 384, KV_SMEM, st>>>(
+        qm, km, vm, dm, lse, Dbuf, (T*)dk, dks, (T*)dv, dvs, S, H, scale_log2, scale);
+    err = (int)cudaGetLastError();
+    if (err) return err;
+    bwd_dq_bf16<<<dim3((S + BT - 1) / BT, B * H), 384, DQ_SMEM, st>>>(
+        qm, km, vm, dm, lse, Dbuf, (T*)dq, dqs, S, H, scale_log2, scale);
   } else if (dtype == 0) {
-    bwd_rowdot<float><<<rgrid, 256, 0, st>>>((const float*)o, os, (const float*)dout, ds, Dbuf,
-                                             S, H, rows);
+    bwd_rowdot_f32<<<(unsigned)((rows + 7) / 8), 256, 0, st>>>(
+        (const float*)o, os, (const float*)dout, ds, Dbuf, S, H, rows);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     const dim3 grid((S + F_ROWS - 1) / F_ROWS, B * H);

@@ -97,13 +97,18 @@ def build_log(name: str) -> str:
         return f.read()
 
 
+def library_path(name: str) -> str:
+    """Where the library built from ``csrc/<name>.cu`` lives (or will)."""
+    return os.path.join(_build_dir(), f"lib{name}.so")
+
+
 def load(name: str, signatures: Dict[str, list]) -> ctypes.CDLL:
     """The library built from ``csrc/<name>.cu``, building it if needed, with
     ``argtypes`` set from ``signatures`` and every ``restype`` an int."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            so = os.path.join(_build_dir(), f"lib{name}.so")
+            so = library_path(name)
             if not os.path.exists(so):
                 os.makedirs(os.path.dirname(so), exist_ok=True)
                 _finish(name, *_start(name, sources()[name], os.path.dirname(so)))

@@ -3,18 +3,23 @@
 Replaces taiwan_whisper_tpu/ops/attention.py::encoder_attention and its
 flash route, encoder_attention_flash, forward and backward (its custom VJP).
 
-* Forward (csrc/encoder_attention.cu): a flash-attention forward, bf16
-  mma.sync tensor-core products with fp32 online softmax in registers,
-  64-key tiles through shared memory, the ragged last tile masked in the
-  kernel. Bound by operations (368.6 GFLOP per large-v2 batch of 32). It
-  optionally writes the per-row log-sum-exp (LSE) the backward needs.
-* Backward (csrc/encoder_attention_bwd.cu): FlashAttention-2's backward
-  without atomics, so gradients are deterministic: D = rowsum(dO * O),
-  then a dK/dV kernel per 64-key tile and a dQ kernel per 64-query tile,
-  each recomputing P from q, k and the LSE.
+* Forward (csrc/encoder_attention.cu): FlashAttention-3's design on
+  Hopper: a producer warp TMA-loads q once and K/V tiles of 128 keys into
+  a ring of shared-memory stages; two consumer warpgroups run q K^T and
+  P V as wgmma (P from registers, V through the descriptor's transpose
+  bit) with the online softmax in fp32 registers. Bound by operations
+  (368.6 GFLOP per large-v2 batch of 32). It optionally writes the per-row
+  log-sum-exp (LSE) the backward needs.
+* Backward (csrc/encoder_attention_bwd.cu): without atomics, so gradients
+  are deterministic: D = rowsum(dO * O), then a dK/dV kernel per 128-key
+  tile (q, dO, LSE and D streamed; every product transposed so P^T and
+  dS^T feed wgmma from registers) and a dQ kernel per 128-query tile (K/V
+  streamed), each recomputing P from q, k and the LSE.
 
-Both have fp32 SIMT variants for the fp32 policy. q/k/v are [B, S, H, Dh]
-and read through their strides.
+The bf16 kernels read q/k/v/dO through TMA tensor maps built per call
+(``tma_map_params`` states their parameters). Both have fp32 SIMT variants
+for the fp32 policy. q/k/v are [B, S, H, Dh] and read through their
+strides.
 
 ``encoder_attention`` launches the forward with no LSE (a null pointer)
 when no gradient is wanted (inference, the frozen encoder); when one is,
@@ -68,6 +73,28 @@ def attention_backward_plain(q, k, v, dout) -> Tuple[torch.Tensor, ...]:
         return torch.autograd.grad(out, leaves, dout)
 
 
+def tma_map_params(t: torch.Tensor, rows: int) -> dict:
+    """The TMA tensor map the bf16 kernels build for a [B, S, H, 64] bf16
+    tensor (csrc/hopper_attention.cuh::make_map): dims (d, h, s, b)
+    innermost first, the byte strides of h, s and b, a box of ``rows``
+    positions of one head, 128-byte swizzle (one 64-wide bf16 row is
+    exactly the swizzle atom). TMA needs the base and every stride on 16
+    bytes; raises otherwise."""
+    b, s, h, d = t.shape
+    size = t.element_size()
+    if d * size != 128 or t.stride(-1) != 1:
+        raise ValueError(f"a tensor map row is 64 contiguous bf16 (128 bytes), got shape "
+                         f"{tuple(t.shape)} of {t.dtype}, strides {t.stride()}")
+    strides = tuple(x * size for x in (t.stride(2), t.stride(1), t.stride(0)))
+    if any(x % 16 for x in strides) or t.data_ptr() % 16:
+        raise ValueError(f"TMA needs 16-byte aligned rows: byte strides (h, s, b) {strides}, "
+                         f"base {t.data_ptr() % 16} bytes past a multiple of 16")
+    if not 0 < rows <= 256:
+        raise ValueError(f"a TMA box spans 1..256 rows, got {rows}")
+    return {"dims": (d, h, s, b), "strides_bytes": strides, "box": (d, 1, rows, 1),
+            "swizzle_bytes": 128}
+
+
 def _check(*tensors):
     b, s, h, d = tensors[0].shape
     if d != HEAD_DIM or any(t.shape != tensors[0].shape for t in tensors):
@@ -78,8 +105,9 @@ def _check(*tensors):
         raise ValueError(f"encoder attention takes bf16 or fp32 tensors, got "
                          f"{[t.dtype for t in tensors]}")
     for t in tensors:
-        # bf16 tiles are read as 16-byte vectors
-        if t.stride(-1) != 1 or any(x % 8 for x in t.stride()[:3]) or t.data_ptr() % 16:
+        if dtype == torch.bfloat16:
+            tma_map_params(t, 128)
+        elif t.stride(-1) != 1 or any(x % 8 for x in t.stride()[:3]) or t.data_ptr() % 16:
             raise ValueError(f"attention tensors need a contiguous head dim and 16-byte "
                              f"aligned rows, got strides {t.stride()}")
 
@@ -112,7 +140,7 @@ def encoder_attention_backward(q, k, v, out, lse, dout):
     if q.device.type == "cpu":
         return attention_backward_plain(q, k, v, dout)
     _build.require_cuda(q, k, v, out, lse, dout)
-    if dout.stride(-1) != 1 or any(x % 8 for x in dout.stride()[:3]):
+    if dout.stride(-1) != 1 or any(x % 8 for x in dout.stride()[:3]) or dout.data_ptr() % 16:
         dout = dout.contiguous()
     _check(q, k, v, out, dout)
     b, s, h, d = q.shape

@@ -71,3 +71,40 @@ def test_lse_plain_is_logsumexp_of_scaled_scores():
     want = np.log(np.exp(s).sum(-1))
     np.testing.assert_allclose(lse.numpy(), want, atol=1e-5)
     assert torch.equal(out, attention_plain(q, k, v))
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "qkv_views"])
+def test_tma_map_params(layout):
+    """The tensor map the bf16 kernels build: dims (d, h, s, b), the byte
+    strides of h, s and b read from the tensor, a box of one head's rows,
+    128-byte swizzle."""
+    from taiwan_whisper_tpu_torch.ops.attention import tma_map_params
+
+    b, s, h = 2, 300, 4
+    if layout == "contiguous":
+        t = torch.zeros((b, s, h, 64), dtype=torch.bfloat16)
+        want = (128, h * 128, s * h * 128)
+    else:  # q, k or v as a view of one [B, S, 3, H, 64] buffer
+        t = torch.zeros((b, s, 3, h, 64), dtype=torch.bfloat16)[:, :, 1]
+        want = (128, 3 * h * 128, s * 3 * h * 128)
+    got = tma_map_params(t, 64)
+    assert got == {"dims": (64, h, s, b), "strides_bytes": want, "box": (64, 1, 64, 1),
+                   "swizzle_bytes": 128}
+    assert tma_map_params(t, 128)["box"] == (64, 1, 128, 1)
+
+
+@pytest.mark.parametrize("bad", ["head_stride", "base", "fp32", "box"])
+def test_tma_map_params_rejects(bad):
+    """TMA needs every stride and the base on 16 bytes and a 128-byte row."""
+    from taiwan_whisper_tpu_torch.ops.attention import tma_map_params
+
+    if bad == "head_stride":  # heads 68 elements (136 bytes) apart
+        t = torch.zeros((1, 8, 2, 68), dtype=torch.bfloat16)[..., :64]
+    elif bad == "base":  # the whole tensor 2 bytes off
+        t = torch.zeros(1 + 8 * 2 * 64, dtype=torch.bfloat16)[1:].view(1, 8, 2, 64)
+    elif bad == "fp32":
+        t = torch.zeros((1, 8, 2, 64), dtype=torch.float32)
+    else:
+        t = torch.zeros((1, 8, 2, 64), dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        tma_map_params(t, 512 if bad == "box" else 64)
