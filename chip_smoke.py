@@ -22,7 +22,10 @@ Phases, each raising on failure:
    strided views of one [B, S, 3, H, 64] buffer, with their launch
    counters checked. Times kernel, plain version
    and, where one exists, the one PyTorch call that computes the same
-   function (CUDA events, median, L2 flushed before every launch).
+   function (CUDA events, median, L2 flushed before every launch); for
+   the bf16 attention forward, forward with LSE and backward also the
+   mean of back-to-back calls and each kernel's device time
+   (torch.profiler), for SDPA too.
 3. label   — the port's ``cli label`` at full large-v2 width with random
    bf16 weights from a seed: 8 synthetic WAVs of 170 s (64 chunks, two
    batches of 32), fp8 cross-KV, VAD off, 192-token budget. Every launch
@@ -133,6 +136,49 @@ def time_ms(fn, torch, iters: int = 10, flush=None) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def loop_ms(fn, torch, iters: int = 20) -> float:
+    """Mean milliseconds of ``fn()`` over back-to-back calls (CUDA events):
+    the host runs ahead of the card, so this is device time."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def kernel_device_ms(fn, torch, calls: int = 5) -> dict:
+    """Device milliseconds per call of each kernel ``fn()`` launches, by
+    kernel name (torch.profiler)."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key[:80]: e.self_device_time_total / 1e3 / calls for e in prof.key_averages()
+            if e.self_device_time_total > 0}
+
+
+def device_times(key: str, fn, library_fn, torch, checks: list):
+    """Back-to-back and per-kernel device times of a kernel's wrapper and,
+    where one exists, of the PyTorch call that computes the same function,
+    beside the flushed single calls ``record`` times."""
+    t = dict(loop_ms=loop_ms(fn, torch), kernels_ms=kernel_device_ms(fn, torch))
+    if library_fn is not None:
+        t.update(library_loop_ms=loop_ms(library_fn, torch),
+                 library_kernels_ms=kernel_device_ms(library_fn, torch))
+    for side, who in (("", "kernel"), ("library_", "library")):
+        if side + "loop_ms" in t:
+            log(f"[kernel] {key} {who} back-to-back {t[side + 'loop_ms']:.4f} ms; "
+                + ", ".join(f"{k} {ms:.4f}" for k, ms in t[side + "kernels_ms"].items()))
+    checks.append(dict(check=f"{key} device times", **t))
 
 
 def bf16_ulp(x: float) -> float:
@@ -255,6 +301,8 @@ def phase_kernels(torch, entries: dict, checks: list):
         time_ms(lambda: EA.attention_plain(q, k, v), torch, iters=3, flush=flush),
         enc_bound,
         time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), torch, flush=flush))
+    device_times("encoder_attention[bf16]", lambda: EA.encoder_attention(q, k, v),
+                 lambda: F.scaled_dot_product_attention(qt, kt, vt), torch, checks)
     q4, v4 = (q.float() * 4).to(bf16), (v.float() / 4).to(bf16)  # exact in bf16
     record("encoder_attention[bf16,peaked]", "encoder_attention", enc_src, enc_rep,
            EA.encoder_attention(q4, k, v4), EA.attention_plain(q4, k, v4), 2e-2,
@@ -385,11 +433,15 @@ def attention_backward_cases(torch, entries, checks, record, g, flush):
             f"(tol 1e-4), output equal to the no-LSE launch: {same}")
         if not (err <= 1e-4 and same):
             raise AssertionError(f"LSE output: err {err:.3g}, output equal {same}")
+        if dtype == torch.bfloat16:
+            device_times("encoder_attention_lse[bf16]", lambda: EA.encoder_attention_lse(q, k, v),
+                         None, torch, checks)
     del q, k, v, out, lse
 
-    def case(key, q, k, v, dout, tol, lib, dtype_kind):
+    def case(key, q, k, v, dout, tol, lib, dtype_kind, library_fn=None):
         """``tol`` None: two bf16 ulps at each gradient's largest |plain|,
-        checked per gradient (the combined check takes the largest)."""
+        checked per gradient (the combined check takes the largest).
+        ``library_fn``: also take device times, beside this function's."""
         b, s, h, d = q.shape
         out, lse = EA.encoder_attention_lse(q, k, v)
         got = EA.encoder_attention_backward(q, k, v, out, lse, dout)
@@ -404,6 +456,9 @@ def attention_backward_cases(torch, entries, checks, record, g, flush):
                 raise AssertionError(f"{key} {name}: max abs err {err:.3g} > {tols[-1]:.3g}")
         flops = 5 * 2 * b * h * s * s * d  # S, dV, dP, dK, dQ: 2*S*S*d each
         n_bytes = 8 * q.numel() * q.element_size() + lse.numel() * 4
+        if library_fn is not None:
+            device_times(key, lambda: EA.encoder_attention_backward(q, k, v, out, lse, dout),
+                         library_fn, torch, checks)
         return record(
             key, "encoder_attention_bwd", src, rep, torch.cat([x.flatten() for x in got]),
             torch.cat([x.flatten() for x in ref]), max(tols),
@@ -428,10 +483,12 @@ def attention_backward_cases(torch, entries, checks, record, g, flush):
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
     o_sdpa = F.scaled_dot_product_attention(qt, kt, vt)
     do_t = dout.transpose(1, 2)
-    lib = time_ms(lambda: torch.autograd.grad(o_sdpa, (qt, kt, vt), do_t, retain_graph=True),
-                  torch, flush=flush)
+    def sdpa_backward():
+        return torch.autograd.grad(o_sdpa, (qt, kt, vt), do_t, retain_graph=True)
+
     entries["encoder_attention_bwd"] = case("encoder_attention_bwd[bf16]", q, k, v, dout,
-                                            None, lib, "bf16")
+                                            None, time_ms(sdpa_backward, torch, flush=flush),
+                                            "bf16", sdpa_backward)
     del qt, kt, vt, o_sdpa, do_t
     q4, v4 = (q.float() * 4).to(bf), (v.float() / 4).to(bf)
     case("encoder_attention_bwd[bf16,peaked]", q4, k, v4, dout, None, None, "bf16")

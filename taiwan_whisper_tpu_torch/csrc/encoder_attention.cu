@@ -308,21 +308,24 @@ enc_attn_f32(const float* __restrict__ q, Strides qs,
 // dtype: 0 = float32, 1 = bfloat16. Strides are in elements; the head dim
 // is contiguous and must be 64 (bf16: strides multiples of 8 elements, base
 // 16-byte aligned, as the tensor maps need). lse: fp32 [B, H, S] or null.
+// maps (bf16; null for fp32): the tensor-map parameters of q, k and v,
+// hopper::MapParams each.
 extern "C" int twt_encoder_attention(
     int dtype, int B, int S, int H,
     const void* q, long long qsb, long long qss, long long qsh,
     const void* k, long long ksb, long long kss, long long ksh,
     const void* v, long long vsb, long long vss, long long vsh,
     void* o, long long osb, long long oss, long long osh,
-    float* lse, float scale, void* stream) {
+    float* lse, const hopper::MapParams* maps, float scale, void* stream) {
   const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh}, os{osb, oss, osh};
   const float scale_log2 = scale * 1.4426950408889634f;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 1) {
+    if (maps == nullptr) return (int)cudaErrorInvalidValue;
     CUtensorMap qm, km, vm;
-    int err = hopper::make_map(&qm, q, B, S, H, qs, FWD_BQ);
-    if (!err) err = hopper::make_map(&km, k, B, S, H, ks, FWD_BK);
-    if (!err) err = hopper::make_map(&vm, v, B, S, H, vs, FWD_BK);
+    int err = hopper::make_map(&qm, q, maps[0], B, S, H, FWD_BQ);
+    if (!err) err = hopper::make_map(&km, k, maps[1], B, S, H, FWD_BK);
+    if (!err) err = hopper::make_map(&vm, v, maps[2], B, S, H, FWD_BK);
     static const int smem = (int)cudaFuncSetAttribute(
         enc_attn_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize, FWD_SMEM);
     if (!err) err = smem;

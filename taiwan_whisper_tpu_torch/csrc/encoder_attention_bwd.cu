@@ -513,8 +513,9 @@ bwd_dq_f32(const float* __restrict__ q, Strides qs, const float* __restrict__ k,
 // dtype: 0 = float32, 1 = bfloat16. Tensors [B, S, H, 64] with strides in
 // elements (head dim contiguous; bf16: strides multiples of 8 elements,
 // bases 16-byte aligned, as the tensor maps need); lse fp32 [B, H, S] from
-// the forward; Dbuf fp32 scratch of B*H*S. Launches D, dK/dV, dQ on
-// `stream`.
+// the forward; Dbuf fp32 scratch of B*H*S; maps (bf16; null for fp32): the
+// tensor-map parameters of q, k, v and dout, hopper::MapParams each.
+// Launches D, dK/dV, dQ on `stream`.
 extern "C" int twt_encoder_attention_bwd(
     int dtype, int B, int S, int H,
     const void* q, long long qsb, long long qss, long long qsh,
@@ -526,7 +527,7 @@ extern "C" int twt_encoder_attention_bwd(
     void* dq, long long dqsb, long long dqss, long long dqsh,
     void* dk, long long dksb, long long dkss, long long dksh,
     void* dv, long long dvsb, long long dvss, long long dvsh,
-    float scale, void* stream) {
+    const hopper::MapParams* maps, float scale, void* stream) {
   const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh}, os{osb, oss, osh},
       ds{dsb, dss, dsh}, dqs{dqsb, dqss, dqsh}, dks{dksb, dkss, dksh}, dvs{dvsb, dvss, dvsh};
   const float scale_log2 = scale * LOG2E;
@@ -536,11 +537,12 @@ extern "C" int twt_encoder_attention_bwd(
     typedef __nv_bfloat16 T;
     // one map each for q, dO, K and V: every tile either kernel loads or
     // streams is BT rows
+    if (maps == nullptr) return (int)cudaErrorInvalidValue;
     CUtensorMap qm, dm, km, vm;
-    int err = hopper::make_map(&qm, q, B, S, H, qs, BT);
-    if (!err) err = hopper::make_map(&dm, dout, B, S, H, ds, BT);
-    if (!err) err = hopper::make_map(&km, k, B, S, H, ks, BT);
-    if (!err) err = hopper::make_map(&vm, v, B, S, H, vs, BT);
+    int err = hopper::make_map(&qm, q, maps[0], B, S, H, BT);
+    if (!err) err = hopper::make_map(&km, k, maps[1], B, S, H, BT);
+    if (!err) err = hopper::make_map(&vm, v, maps[2], B, S, H, BT);
+    if (!err) err = hopper::make_map(&dm, dout, maps[3], B, S, H, BT);
     static const int kv_smem = (int)cudaFuncSetAttribute(
         bwd_dkdv_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize, KV_SMEM);
     static const int dq_smem = (int)cudaFuncSetAttribute(

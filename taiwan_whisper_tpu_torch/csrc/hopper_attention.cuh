@@ -6,9 +6,10 @@
 //   strides: a 4-D map over (d, h, s, b), a box of [rows x 64] (one head, a
 //   run of positions), 128-byte swizzle. A bf16 row of 64 is exactly 128
 //   bytes, the swizzle atom wgmma's 128-byte mode reads. Rows past S are
-//   zero-filled on a load. Built on the host for every call from the
-//   tensor's pointer and strides (ops/attention.py::tma_map_params states
-//   the same parameters and checks them before a launch).
+//   zero-filled on a load. Encoded on the host for every call from the
+//   tensor's pointer and the parameters the wrapper computed from its
+//   strides (ops/attention.py::tma_map_params), which make_map checks
+//   against the kernels' tile shape.
 // * mbarriers for the producer/consumer ring: the producer's TMA loads
 //   complete a stage's `full` barrier by bytes, the consumer warps release
 //   it on its `empty` barrier.
@@ -54,16 +55,31 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The map of a bf16 [B, S, H, 64] tensor: dims (d, h, s, b) = (64, H, S, B),
-// byte strides (h, s, b), box (64, 1, rows, 1), 128-byte swizzle, zero fill.
-// Returns a cudaError_t code (cudaErrorInvalidValue if the driver refuses).
-inline int make_map(CUtensorMap* map, const void* base, int B, int S, int H, Strides st,
+// One map's parameters as the wrappers pass them, twelve int64 words
+// (ops/attention.py::tma_map_words): dims (d, h, s, b) innermost first,
+// the byte strides of h, s and b, the box, the swizzle in bytes.
+struct MapParams { long long dims[4], strides[3], box[4], swizzle; };
+static_assert(sizeof(MapParams) == 12 * sizeof(long long), "twelve words per map");
+
+// The map of a bf16 [B, S, H, 64] tensor from the wrapper's parameters,
+// which must describe what the kernels read: dims (64, H, S, B), a box of
+// `rows` positions of one head, 128-byte swizzle; zero fill. Returns a
+// cudaError_t code (cudaErrorInvalidValue for other parameters or if the
+// driver refuses them).
+inline int make_map(CUtensorMap* map, const void* base, const MapParams& p, int B, int S, int H,
                     int rows) {
+  if (p.dims[0] != D || p.dims[1] != H || p.dims[2] != S || p.dims[3] != B || p.box[0] != D ||
+      p.box[1] != 1 || p.box[2] != rows || p.box[3] != 1 || p.swizzle != 128)
+    return (int)cudaErrorInvalidValue;
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)st.h * 2, (cuuint64_t)st.s * 2, (cuuint64_t)st.b * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)D, 1, (cuuint32_t)rows, 1};
+  cuuint64_t dims[4], strides[3];
+  cuuint32_t box[4];
+  for (int i = 0; i < 4; ++i) {
+    dims[i] = (cuuint64_t)p.dims[i];
+    box[i] = (cuuint32_t)p.box[i];
+  }
+  for (int i = 0; i < 3; ++i) strides[i] = (cuuint64_t)p.strides[i];
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
                             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,

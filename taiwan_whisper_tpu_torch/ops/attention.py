@@ -16,10 +16,10 @@ flash route, encoder_attention_flash, forward and backward (its custom VJP).
   dS^T feed wgmma from registers) and a dQ kernel per 128-query tile (K/V
   streamed), each recomputing P from q, k and the LSE.
 
-The bf16 kernels read q/k/v/dO through TMA tensor maps built per call
-(``tma_map_params`` states their parameters). Both have fp32 SIMT variants
-for the fp32 policy. q/k/v are [B, S, H, Dh] and read through their
-strides.
+The bf16 kernels read q/k/v/dO through TMA tensor maps encoded per call
+from the parameters ``tma_map_params`` computes here. Both have fp32 SIMT
+variants for the fp32 policy. q/k/v are [B, S, H, Dh] and read through
+their strides.
 
 ``encoder_attention`` launches the forward with no LSE (a null pointer)
 when no gradient is wanted (inference, the frozen encoder); when one is,
@@ -30,6 +30,7 @@ it is the plain version under autograd.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Tuple
 
 import torch
@@ -38,10 +39,14 @@ from . import _build
 
 _P, _L, _I = _build.P, _build.L, _build.I
 _SIG = {"twt_encoder_attention": [_I, _I, _I, _I] + [_P, _L, _L, _L] * 4
-        + [_P, _build.F, _P]}
+        + [_P, _P, _build.F, _P]}
 _SIG_BWD = {"twt_encoder_attention_bwd": [_I, _I, _I, _I] + [_P, _L, _L, _L] * 5
-            + [_P, _P] + [_P, _L, _L, _L] * 3 + [_build.F, _P]}
+            + [_P, _P] + [_P, _L, _L, _L] * 3 + [_P, _build.F, _P]}
 HEAD_DIM = 64
+# rows of every tile the bf16 kernels load through a tensor map: the
+# forward's q and K/V tiles and the backward's streamed and resident tiles
+# (FWD_BQ, FWD_BK and BT in csrc/, which check the box against them)
+TMA_BOX_ROWS = 128
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -73,10 +78,10 @@ def attention_backward_plain(q, k, v, dout) -> Tuple[torch.Tensor, ...]:
         return torch.autograd.grad(out, leaves, dout)
 
 
-def tma_map_params(t: torch.Tensor, rows: int) -> dict:
-    """The TMA tensor map the bf16 kernels build for a [B, S, H, 64] bf16
-    tensor (csrc/hopper_attention.cuh::make_map): dims (d, h, s, b)
-    innermost first, the byte strides of h, s and b, a box of ``rows``
+def tma_map_params(t: torch.Tensor, rows: int = TMA_BOX_ROWS) -> dict:
+    """The TMA tensor map of a [B, S, H, 64] bf16 tensor, as the bf16
+    kernels encode it (csrc/hopper_attention.cuh::make_map): dims (d, h, s,
+    b) innermost first, the byte strides of h, s and b, a box of ``rows``
     positions of one head, 128-byte swizzle (one 64-wide bf16 row is
     exactly the swizzle atom). TMA needs the base and every stride on 16
     bytes; raises otherwise."""
@@ -95,6 +100,20 @@ def tma_map_params(t: torch.Tensor, rows: int) -> dict:
             "swizzle_bytes": 128}
 
 
+def tma_map_words(*tensors: torch.Tensor):
+    """What the C entries take for the tensor maps of ``tensors``: for bf16,
+    a C array of twelve int64 words per tensor (hopper::MapParams),
+    ``tma_map_params``' dims, strides, box and swizzle in that order; None
+    for fp32, whose kernels read through plain pointers."""
+    if tensors[0].dtype != torch.bfloat16:
+        return None
+    words = []
+    for t in tensors:
+        p = tma_map_params(t)
+        words += [*p["dims"], *p["strides_bytes"], *p["box"], p["swizzle_bytes"]]
+    return (ctypes.c_longlong * len(words))(*words)
+
+
 def _check(*tensors):
     b, s, h, d = tensors[0].shape
     if d != HEAD_DIM or any(t.shape != tensors[0].shape for t in tensors):
@@ -106,7 +125,7 @@ def _check(*tensors):
                          f"{[t.dtype for t in tensors]}")
     for t in tensors:
         if dtype == torch.bfloat16:
-            tma_map_params(t, 128)
+            tma_map_params(t)
         elif t.stride(-1) != 1 or any(x % 8 for x in t.stride()[:3]) or t.data_ptr() % 16:
             raise ValueError(f"attention tensors need a contiguous head dim and 16-byte "
                              f"aligned rows, got strides {t.stride()}")
@@ -129,7 +148,7 @@ def _forward_kernel(q, k, v, with_lse: bool):
         args += _ptr_strides(t)
     _build.check(lib.twt_encoder_attention(
         _build.dtype_code(q), b, s, h, *args, None if lse is None else lse.data_ptr(),
-        d ** -0.5, _build.stream_of(q)), "encoder attention kernel")
+        tma_map_words(q, k, v), d ** -0.5, _build.stream_of(q)), "encoder attention kernel")
     encoder_attention.launches += 1
     return out, lse
 
@@ -157,7 +176,8 @@ def encoder_attention_backward(q, k, v, out, lse, dout):
     for t in grads:
         args += _ptr_strides(t)
     _build.check(lib.twt_encoder_attention_bwd(
-        _build.dtype_code(q), b, s, h, *args, d ** -0.5, _build.stream_of(q)),
+        _build.dtype_code(q), b, s, h, *args, tma_map_words(q, k, v, dout), d ** -0.5,
+        _build.stream_of(q)),
         "encoder attention backward kernels")
     encoder_attention_backward.launches += 1
     return tuple(grads)

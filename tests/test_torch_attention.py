@@ -108,3 +108,19 @@ def test_tma_map_params_rejects(bad):
         t = torch.zeros((1, 8, 2, 64), dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         tma_map_params(t, 512 if bad == "box" else 64)
+
+
+def test_tma_map_words_are_what_the_kernels_receive():
+    """The bf16 C entries take twelve int64 words per tensor
+    (hopper::MapParams): tma_map_params' dims, byte strides, box of
+    TMA_BOX_ROWS rows and swizzle, tensor by tensor in argument order; the
+    fp32 entries take none."""
+    from taiwan_whisper_tpu_torch.ops.attention import TMA_BOX_ROWS, tma_map_words
+
+    b, s, h = 2, 300, 4
+    q = torch.zeros((b, s, h, 64), dtype=torch.bfloat16)
+    k = torch.zeros((b, s, 3, h, 64), dtype=torch.bfloat16)[:, :, 1]
+    assert list(tma_map_words(q, k)) == [
+        64, h, s, b, 128, h * 128, s * h * 128, 64, 1, TMA_BOX_ROWS, 1, 128,
+        64, h, s, b, 128, 3 * h * 128, s * 3 * h * 128, 64, 1, TMA_BOX_ROWS, 1, 128]
+    assert tma_map_words(q.float(), k.float()) is None
