@@ -20,12 +20,17 @@ Phases, each raising on failure:
    the JAX package) at the encoder's LN shape. The attention kernels are
    also held, both directions, at S = 300, at B = 1 and on q/k/v that are
    strided views of one [B, S, 3, H, 64] buffer, with their launch
-   counters checked. Times kernel, plain version
+   counters checked; the decode kernels on a contiguous (not row-padded)
+   cross K/V, which the wrapper must refuse for fp8 and take for fp32,
+   and at B = 1, counters checked too. Times kernel, plain version
    and, where one exists, the one PyTorch call that computes the same
    function (CUDA events, median, L2 flushed before every launch); for
-   the bf16 attention forward, forward with LSE and backward also the
-   mean of back-to-back calls and each kernel's device time
-   (torch.profiler), for SDPA too.
+   the bf16 attention forward, forward with LSE and backward, and for the
+   decode kernels at the label path's shapes (cross fp8 with 1 and 3
+   rows, self bf16 at index 3, 97 and 194), also the mean of back-to-back
+   calls and each kernel's device time (torch.profiler), for SDPA too;
+   for the decode kernels the host microseconds per wrapper call and a
+   rerun that must be bitwise equal.
 3. label   — the port's ``cli label`` at full large-v2 width with random
    bf16 weights from a seed: 8 synthetic WAVs of 170 s (64 chunks, two
    batches of 32), fp8 cross-KV, VAD off, 192-token budget. Every launch
@@ -207,20 +212,217 @@ def phase_build():
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[ptxas {name}] {line.strip()}")
-    # the attention kernels are built on Hopper's wgmma (HGMMA) and TMA loads
-    # (UTMALDG): count them in the built code
+    # the encoder-attention kernels are built on Hopper's wgmma (HGMMA) and
+    # TMA loads (UTMALDG), the decode kernels on 16-byte asynchronous copies
+    # (LDGSTS): count them in the built code
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    for name in ("encoder_attention", "encoder_attention_bwd"):
+    for name, ops in (("encoder_attention", ("HGMMA", "UTMALDG")),
+                      ("encoder_attention_bwd", ("HGMMA", "UTMALDG")),
+                      ("decode_attention", ("LDGSTS",))):
         if not os.path.exists(cuobjdump):
-            log(f"[sass {name}] cuobjdump not found: HGMMA / UTMALDG not counted")
+            log(f"[sass {name}] cuobjdump not found: {' / '.join(ops)} not counted")
             continue
         sass = subprocess.run([cuobjdump, "-sass", _build.library_path(name)],
                               capture_output=True, text=True, check=True).stdout
-        counts = {op: sum(1 for line in sass.splitlines() if op in line)
-                  for op in ("HGMMA", "UTMALDG")}
-        log(f"[sass {name}] HGMMA {counts['HGMMA']}, UTMALDG {counts['UTMALDG']}")
+        counts = {op: sum(1 for line in sass.splitlines() if op in line) for op in ops}
+        log(f"[sass {name}] " + ", ".join(f"{op} {n}" for op, n in counts.items()))
         if not all(counts.values()):
-            raise AssertionError(f"{name}: no wgmma or no TMA load in the built code: {counts}")
+            raise AssertionError(f"{name}: an expected instruction is missing from the built "
+                                 f"code: {counts}")
+
+
+DECODE_SRC = "taiwan_whisper_tpu_torch/csrc/decode_attention.cu"
+CROSS_REP = "taiwan_whisper_tpu/ops/decode_attention.py:69"
+SELF_REP = "taiwan_whisper_tpu/ops/decode_attention.py:132"
+
+
+def cross_bound(q, k):
+    """Cross attention moves K and V once, q in and fp32 out; 4 flop per
+    K/V element and query row."""
+    b, r, h, d = q.shape
+    return bound_ms(2 * k.numel() * k.element_size() + q.numel() * q.element_size()
+                    + b * r * h * d * 4, 4 * b * h * r * k.shape[-1] * d,
+                    "bf16" if q.dtype.itemsize == 2 else "fp32")
+
+
+def self_bound(q, index, vf):
+    """Self attention moves the valid cache positions of K and V, q and the
+    current token's k/v in, fp32 out (valid_from: the positions it leaves)."""
+    b, h, d = q.shape
+    valid = b * index if vf is None else int((index - vf.clamp(max=index)).sum())
+    size = q.element_size()
+    return bound_ms(2 * valid * h * d * size + 3 * b * h * d * size
+                    + (0 if vf is None else b * 4) + b * h * d * 4,
+                    4 * valid * h * d, "bf16" if size == 2 else "fp32")
+
+
+def self_sdpa(torch, q, ck, cv, k_t, v_t, index, vf):
+    """The one PyTorch call that computes self attention: SDPA of q over
+    cache positions [lo, index] with the current token written at `index`
+    (as the model's step does next) and a boolean mask for lo; returns the
+    call, its inputs made beforehand."""
+    import torch.nn.functional as F
+
+    ck2, cv2 = ck.clone(), cv.clone()
+    ck2[..., index], cv2[..., index] = k_t, v_t
+    kh, vh = (x[..., :index + 1].transpose(-1, -2) for x in (ck2, cv2))
+    pos = torch.arange(index + 1, device=q.device)
+    lo = torch.zeros(q.shape[0], dtype=torch.int32, device=q.device) if vf is None else vf
+    mask = (pos[None] >= lo[:, None])[:, None, None, :]
+    qh = q[:, :, None, :]
+    return lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask, scale=1.0)
+
+
+def host_us(fn, torch, calls: int = 200) -> float:
+    """Host microseconds per call of ``fn()`` issued back to back: what the
+    wrapper costs the host, the card's work queued behind it."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
+
+
+def decode_edge_cases(torch, DA, checks, g, dev):
+    """The decode kernels away from the main path's layout: a cross K/V
+    that is contiguous, not row-padded (fp8 rows of 1500 bytes cannot take
+    16-byte copies: the wrapper must refuse them with its message; fp32 rows
+    of 6000 bytes can: the kernel must take them), and batch 1 (a grid of
+    20 clusters, less than one wave). Tolerances as in phase_kernels; the
+    launch counters are zeroed first and must count exactly the accepted
+    launches."""
+    D, T, H = 64, 1500, 20
+    zero_counters()
+    base = torch.randn((4, 8, D, T), generator=g, device=dev)
+    k8, v8 = (base * 50).to(torch.float8_e4m3fn), (base * 25).to(torch.float8_e4m3fn)
+    q = (torch.randn((4, 1, 8, D), generator=g, device=dev) * 0.0025).to(torch.bfloat16)
+    try:
+        DA.cross_attention(q, k8, v8)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    log(f"[kernel] cross_attention on contiguous fp8 rows of {T} bytes: refused: {refused}")
+    if refused is None or "16 bytes" not in refused:
+        raise AssertionError("the wrapper took fp8 K/V rows that are not on 16 bytes")
+    cases = {"fp32 contiguous rows": (torch.randn((4, 1, 8, D), generator=g, device=dev) * 0.125,
+                                      base, base * 0.5, 1.0, 1e-5)}
+    b1 = torch.randn((1, H, D, T), generator=g, device=dev)
+    for rows in (1, 3):
+        cases[f"B=1,rows={rows}"] = (
+            (torch.randn((1, rows, H, D), generator=g, device=dev) * 0.0025).to(torch.bfloat16),
+            DA.time_minor_copy((b1 * 50).to(torch.float8_e4m3fn)),
+            DA.time_minor_copy((b1 * 25).to(torch.float8_e4m3fn)), 1 / 25, 1e-3)
+    for key, (q, k, v, v_scale, tol) in cases.items():
+        err = max_abs(DA.cross_attention(q, k, v) * v_scale,
+                      DA.cross_attention_plain(q, k, v) * v_scale)
+        log(f"[kernel] cross_attention edge {key} k strides {k.stride()}: err {err:.3g} "
+            f"(tol {tol:g})")
+        checks.append(dict(check=f"cross_attention_edge[{key}]", max_abs_err=err, tolerance=tol))
+        if not err <= tol:
+            raise AssertionError(f"cross attention edge case {key}: err {err:.3g} > {tol:g}")
+    ck, cv = (DA.time_minor_copy(torch.randn((1, H, D, 195), generator=g, device=dev)
+                                 .to(torch.bfloat16)) for _ in range(2))
+    q, k_t, v_t = (torch.randn((1, H, D), generator=g, device=dev).to(torch.bfloat16)
+                   for _ in range(3))
+    q = q * 0.125
+    err = max_abs(DA.self_attention(q, ck, cv, k_t, v_t, 194),
+                  DA.self_attention_plain(q, ck, cv, k_t, v_t, 194, None))
+    log(f"[kernel] self_attention edge B=1, index 194: err {err:.3g} (tol 1e-3)")
+    checks.append(dict(check="self_attention_edge[B=1]", max_abs_err=err, tolerance=1e-3))
+    if not err <= 1e-3:
+        raise AssertionError(f"self attention at B=1: err {err:.3g} > 1e-3")
+    launches = read_counters()
+    expected = dict({k: 0 for k in launches}, cross_decode_attention=len(cases),
+                    self_decode_attention=1)
+    log(f"[kernel] decode edge launches {json.dumps(launches)} expected "
+        f"{json.dumps(expected)}")
+    if launches != expected:
+        raise AssertionError(f"decode edge-case launch counts {launches} != expected {expected}")
+
+
+def decode_timings(torch, DA, checks, flush, sweep: bool = False) -> dict:
+    """The decode kernels at the label path's shapes (large-v2, batch 32):
+    cross with fp8 K/V and 1 and 3 query rows, self bf16 at index 3, 97 and
+    194 of a 195-position cache. Each is held against its plain version
+    (1e-3), called twice for bitwise equality (no atomics), and timed:
+    flushed single calls, back to back, per kernel (torch.profiler) and the
+    host microseconds per wrapper call; SDPA over the same cache positions
+    beside the self kernel. ``DA`` is the decode-attention module under
+    test, storing K/V as its own model does (``tools/bench_decode_attention``
+    hands in another checkout's); ``sweep`` also runs every cluster size the
+    wrapper takes."""
+    import inspect
+
+    dev = flush.device
+    g = torch.Generator(device=dev).manual_seed(4)
+    B, H, D, T, S = LARGE_V2_BATCH, 20, 64, 1500, 3 + MAX_DECODE_TOKENS
+    store = getattr(DA, "time_minor_copy", lambda x: x.contiguous())
+    clusters = ((None,) + tuple(DA.CLUSTERS)
+                if sweep and "cluster" in inspect.signature(DA.cross_attention).parameters
+                else (None,))
+    out = {}
+
+    def measure(key, fn, plain, bound, library=None, out_scale=1.0):
+        """``out_scale``: the V scale the model applies next; the error is
+        read after it."""
+        got, again = fn(), fn()
+        err, same = max_abs(got * out_scale, plain() * out_scale), torch.equal(got, again)
+        t = dict(max_abs_err=err, bitwise_equal=same, ms=time_ms(fn, torch, iters=20, flush=flush),
+                 loop_ms=loop_ms(fn, torch), kernels_ms=kernel_device_ms(fn, torch),
+                 host_us=host_us(fn, torch), bound_ms=bound[0])
+        if library is not None:
+            t.update(library_max_abs_err=max_abs(library().reshape(got.shape) * out_scale,
+                                                 plain() * out_scale),
+                     library_ms=time_ms(library, torch, iters=20, flush=flush),
+                     library_loop_ms=loop_ms(library, torch),
+                     library_kernels_ms=kernel_device_ms(library, torch))
+        kern = sum(t["kernels_ms"].values())
+        log(f"[decode] {key}: err {err:.3g} (tol 1e-3), bitwise equal on a rerun {same}; "
+            f"flushed {t['ms']:.4f} ms, back-to-back {t['loop_ms']:.4f} ms, per kernel "
+            + ", ".join(f"{k} {ms:.4f}" for k, ms in t["kernels_ms"].items())
+            + f"; bound {bound[0]:.4f} ms ({bound[1]}), share "
+            + (f"{bound[0] / kern:.1%}" if kern > 0 else "not measured (no kernel traced)")
+            + f" of the device time; host {t['host_us']:.1f} us per call"
+            + ("" if library is None else
+               f"; SDPA (err {t['library_max_abs_err']:.3g}) flushed {t['library_ms']:.4f} ms, "
+               f"back-to-back "
+               f"{t['library_loop_ms']:.4f} ms, per kernel "
+               + ", ".join(f"{k} {ms:.4f}" for k, ms in t["library_kernels_ms"].items())))
+        checks.append(dict(check=f"{key} device times", **t))
+        out[key] = t
+        if not (err <= 1e-3 and same):
+            raise AssertionError(f"{key}: err {err:.3g}, bitwise equal on a rerun {same}")
+
+    base = torch.randn((B, H, D, T), generator=g, device=dev)
+    k, v = store((base * 50).to(torch.float8_e4m3fn)), store((base * 25).to(torch.float8_e4m3fn))
+    del base
+    for rows in (1, 3):
+        q = (torch.randn((B, rows, H, D), generator=g, device=dev) * 0.0025).to(torch.bfloat16)
+        for c in clusters if rows == 1 else (None,):
+            kw = {} if c is None else {"cluster": c}
+            measure(f"cross_attention[bf16 q,fp8,rows={rows}" + ("" if c is None else f",C={c}")
+                    + "]", lambda: DA.cross_attention(q, k, v, **kw),
+                    lambda: DA.cross_attention_plain(q, k, v), cross_bound(q, k), out_scale=1 / 25)
+    del k, v
+    ck, cv = (store(torch.randn((B, H, D, S), generator=g, device=dev).to(torch.bfloat16))
+              for _ in range(2))
+    q, k_t, v_t = (torch.randn((B, H, D), generator=g, device=dev).to(torch.bfloat16)
+                   for _ in range(3))
+    q = q * 0.125
+    for index in (3, 97, 194):
+        for c in clusters:
+            if c is not None and (c - 1) * DA.decode_split(index, 2, c)[1] >= index:
+                continue  # a block with nothing to read
+            kw = {} if c is None else {"cluster": c}
+            measure(f"self_attention[bf16,index={index}" + ("" if c is None else f",C={c}") + "]",
+                    lambda: DA.self_attention(q, ck, cv, k_t, v_t, index, **kw),
+                    lambda: DA.self_attention_plain(q, ck, cv, k_t, v_t, index, None),
+                    self_bound(q, index, None),
+                    self_sdpa(torch, q, ck, cv, k_t, v_t, index, None) if c is None else None)
+    return out
 
 
 def phase_kernels(torch, entries: dict, checks: list):
@@ -318,19 +520,21 @@ def phase_kernels(torch, entries: dict, checks: list):
            bound_ms(4 * AB * T * AH * D * 4, 4 * AB * AH * T * T * D, "fp32"), None)
     del q, k, v
 
-    # 3. cross attention over one layer's time-minor K/V [B, H, 64, 1500],
-    # 1 query row (decode step) and 3 (prefill): bf16 q with bf16/int8/fp8
-    # storage at the label path's shapes, fp32 q with fp32/int8/fp8 storage
-    # at the agree phase's. q is scaled so the scores have unit spread, as
-    # in the model; the error is read after the V scale the model applies
-    # next (dequantized output, O(1)). Tolerance 1e-3 for bf16 q: fp32
-    # output from identical inputs; the probabilities are rounded to bf16 on
-    # both sides, and a fp32 summation-order difference can move one across
-    # a bf16 rounding boundary. Tolerance 1e-5 for fp32 q: nothing is
-    # rounded below fp32, only the summation order differs.
+    # 3. cross attention over one layer's time-minor K/V [B, H, 64, 1500]
+    # in row-padded storage (as the model keeps it), 1 query row (decode
+    # step) and 3 (prefill): bf16 q with bf16/int8/fp8 storage at the label
+    # path's shapes, fp32 q with fp32/int8/fp8 storage at the agree phase's.
+    # q is scaled so the scores have unit spread, as in the model; the error
+    # is read after the V scale the model applies next (dequantized output,
+    # O(1)). Tolerance 1e-3 for bf16 q: fp32 output from identical inputs;
+    # the probabilities are rounded to bf16 on both sides, and a fp32
+    # summation-order difference can move one across a bf16 rounding
+    # boundary. Tolerance 1e-5 for fp32 q: nothing is rounded below fp32,
+    # only the summation order differs.
     def cross_cases(b, h, q_dtype, stores, tol, entry):
         base = torch.randn((b, h, D, T), generator=g, device=dev)
         for store, (kq, vq, q_scale, v_scale) in stores(base).items():
+            kq, vq = DA.time_minor_copy(kq), DA.time_minor_copy(vq)
             for rows in (1, 3):
                 qs = (torch.randn((b, rows, h, D), generator=g, device=dev)
                       * q_scale).to(q_dtype)
@@ -341,17 +545,13 @@ def phase_kernels(torch, entries: dict, checks: list):
                         qh, kh, vh, scale=1.0), torch, flush=flush)
                 row = record(
                     f"cross_attention[{str(q_dtype)[6:]} q,{store},rows={rows}]",
-                    "cross_decode_attention",
-                    "taiwan_whisper_tpu_torch/csrc/decode_attention.cu",
-                    "taiwan_whisper_tpu/ops/decode_attention.py:69",
+                    "cross_decode_attention", DECODE_SRC, CROSS_REP,
                     DA.cross_attention(qs, kq, vq) * v_scale,
                     DA.cross_attention_plain(qs, kq, vq) * v_scale, tol,
                     time_ms(lambda: DA.cross_attention(qs, kq, vq), torch, iters=20,
                             flush=flush),
                     time_ms(lambda: DA.cross_attention_plain(qs, kq, vq), torch, flush=flush),
-                    bound_ms(2 * kq.numel() * kq.element_size() + qs.numel() * qs.element_size()
-                             + b * rows * h * D * 4, 4 * b * h * rows * T * D,
-                             "bf16" if q_dtype == bf16 else "fp32"), lib)
+                    cross_bound(qs, kq), lib)
                 if (store, rows) == entry:
                     entries["cross_decode_attention"] = row
 
@@ -367,33 +567,34 @@ def phase_kernels(torch, entries: dict, checks: list):
     cross_cases(AB, AH, f32, lambda base: {
         "fp32": (base, base * 0.5, 0.125, 1.0), **quantized(base)}, 1e-5, None)
 
-    # 4. self attention over the cache [B, H, 64, S] at the last step
-    # (index S - 1): bf16 at the label path's shapes with no valid_from
-    # (what the label path passes: the kernel's null-pointer branch) and
-    # with a mixed valid_from; fp32 at the agree phase's shapes with no
-    # valid_from. Tolerances 1e-3 (bf16) and 1e-5 (fp32) as for cross.
+    # 4. self attention over the cache [B, H, 64, S] (row-padded) at the
+    # last step (index S - 1): bf16 at the label path's shapes with no
+    # valid_from (what the label path passes: the kernel's null-pointer
+    # branch) and with a mixed valid_from; fp32 at the agree phase's shapes
+    # with no valid_from. Tolerances 1e-3 (bf16) and 1e-5 (fp32) as for
+    # cross. The library yardstick of the label path's case is SDPA over
+    # the same cache positions with the current token written at `index`.
     def self_case(b, h, s, dtype, vf, tol):
         index = s - 1
-        ck, cv = (torch.randn((b, h, D, s), generator=g, device=dev).to(dtype)
-                  for _ in range(2))
+        ck, cv = (DA.time_minor_copy(torch.randn((b, h, D, s), generator=g, device=dev)
+                                     .to(dtype)) for _ in range(2))
         qs, k_t, v_t = (torch.randn((b, h, D), generator=g, device=dev).to(dtype)
                         for _ in range(3))
         qs = qs * 0.125
-        valid = b * index if vf is None else int((index - vf.clamp(max=index)).sum())
-        size = torch.tensor([], dtype=dtype).element_size()
+        lib = None
+        if dtype == bf16 and vf is None:
+            sdpa = self_sdpa(torch, qs, ck, cv, k_t, v_t, index, vf)
+            lib = time_ms(sdpa, torch, flush=flush)
         key = f"self_attention[{str(dtype)[6:]},valid_from={'none' if vf is None else 'mixed'}]"
         return record(
-            key, "self_decode_attention", "taiwan_whisper_tpu_torch/csrc/decode_attention.cu",
-            "taiwan_whisper_tpu/ops/decode_attention.py:132",
+            key, "self_decode_attention", DECODE_SRC, SELF_REP,
             DA.self_attention(qs, ck, cv, k_t, v_t, index, vf),
             DA.self_attention_plain(qs, ck, cv, k_t, v_t, index, vf), tol,
             time_ms(lambda: DA.self_attention(qs, ck, cv, k_t, v_t, index, vf), torch,
                     iters=20, flush=flush),
             time_ms(lambda: DA.self_attention_plain(qs, ck, cv, k_t, v_t, index, vf), torch,
                     flush=flush),
-            bound_ms(2 * valid * h * D * size + 3 * b * h * D * size
-                     + (0 if vf is None else b * 4) + b * h * D * 4,
-                     4 * valid * h * D, "bf16" if dtype == bf16 else "fp32"), None)
+            self_bound(qs, index, vf), lib)
 
     S = 3 + MAX_DECODE_TOKENS
     entries["self_decode_attention"] = self_case(B, H, S, bf16, None, 1e-3)
@@ -402,6 +603,8 @@ def phase_kernels(torch, entries: dict, checks: list):
     self_case(AB, AH, AS, f32, None, 1e-5)
     attention_backward_cases(torch, entries, checks, record, g, flush)
     layer_norm_cases(torch, entries, record, g, flush)
+    decode_edge_cases(torch, DA, checks, g, dev)
+    decode_timings(torch, DA, checks, flush)
 
 
 def attention_backward_cases(torch, entries, checks, record, g, flush):

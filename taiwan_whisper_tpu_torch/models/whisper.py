@@ -8,7 +8,10 @@ training keeps fp32 masters and their gradients arrive in fp32. For
 inference ``prepare_params`` casts once at load, and the casts are no-ops.
 The JAX package's layouts are kept at the public functions: encoder q/k/v
 ``[B, S, H, Dh]``, the cross K/V time-minor ``[L, B, H, Dh, T]`` with
-scales ``[L, B, H, Dh, 1]``, the self cache ``[L, B, H, Dh, S]``. On CUDA
+scales ``[L, B, H, Dh, 1]``, the self cache ``[L, B, H, Dh, S]``; the cross
+K/V and the cache are views of storage whose last axis is padded so every
+row starts on 128 bytes (``ops/decode_attention.py::time_minor_zeros``), as
+the decode kernels' 16-byte copies need. On CUDA
 tensors encoder self-attention (forward, and backward when the encoder
 trains), cross-attention (decode steps and prefill) and cached
 self-attention go through the port's CUDA kernels; on CPU tensors through
@@ -36,7 +39,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import attention_plain, encoder_attention
-from ..ops.decode_attention import cross_attention, self_attention
+from ..ops.decode_attention import cross_attention, self_attention, time_minor_zeros
 from .config import DtypePolicy, WhisperConfig
 
 Params = Dict[str, Any]
@@ -220,8 +223,8 @@ def extend(*args, **kwargs):
 
 @dataclasses.dataclass
 class KVCache:
-    """Self-attention cache of all decoder layers, [L, B, H, Dh, S] each,
-    updated in place."""
+    """Self-attention cache of all decoder layers, [L, B, H, Dh, S] each
+    (views of row-padded storage), updated in place."""
 
     k: torch.Tensor
     v: torch.Tensor
@@ -236,8 +239,8 @@ def init_cache(config: WhisperConfig, batch: int, max_len: Optional[int] = None,
     s = max_len or config.max_target_positions
     shape = (config.decoder_layers, batch, config.decoder_attention_heads,
              config.head_dim, s)
-    return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
-                   v=torch.zeros(shape, dtype=dtype, device=device))
+    return KVCache(k=time_minor_zeros(shape, dtype, device),
+                   v=time_minor_zeros(shape, dtype, device))
 
 
 @dataclasses.dataclass
@@ -277,28 +280,35 @@ def _quantize_kv_slice(x: torch.Tensor, bits):
 
 def precompute_cross_kv(params: Params, enc_out: torch.Tensor, config: WhisperConfig,
                         policy: DtypePolicy = DtypePolicy(), *, quantize=0) -> CrossKV:
-    """Cross-attention K/V of all layers, time-minor [L, B, H, Dh, T]
-    (a QuantCrossKV when ``quantize`` is 8/True or "fp8"), quantized layer
-    by layer so the fp32 transient stays one layer's size."""
+    """Cross-attention K/V of all layers, time-minor [L, B, H, Dh, T] in
+    row-padded storage (a QuantCrossKV when ``quantize`` is 8/True or
+    "fp8"), written layer by layer so the fp32 transient stays one layer's
+    size."""
     dtype = policy.compute_dtype
     n_heads = config.decoder_attention_heads
+    layers = params["decoder"]["layers"]
     enc = enc_out.to(dtype)
-    ks, vs = [], []
-    for lp in params["decoder"]["layers"]:
+    ks = vs = None
+    k_scales, v_scales = [], []
+    for i, lp in enumerate(layers):
         a = lp["cross_attn"]
         # [B, T, H, Dh] -> [B, H, Dh, T]
-        k = _split_heads(_dense(a["k"], enc), n_heads).permute(0, 2, 3, 1).contiguous()
-        v = _split_heads(_dense(a["v"], enc), n_heads).permute(0, 2, 3, 1).contiguous()
+        k = _split_heads(_dense(a["k"], enc), n_heads).permute(0, 2, 3, 1)
+        v = _split_heads(_dense(a["v"], enc), n_heads).permute(0, 2, 3, 1)
         if quantize:
-            k, v = _quantize_kv_slice(k, quantize), _quantize_kv_slice(v, quantize)
-        ks.append(k)
-        vs.append(v)
+            (k, k_scale), (v, v_scale) = _quantize_kv_slice(k, quantize), \
+                _quantize_kv_slice(v, quantize)
+            k_scales.append(k_scale)
+            v_scales.append(v_scale)
+        if ks is None:
+            ks = time_minor_zeros((len(layers), *k.shape), k.dtype, k.device)
+            vs = time_minor_zeros((len(layers), *v.shape), v.dtype, v.device)
+        ks[i] = k
+        vs[i] = v
     if quantize:
-        return QuantCrossKV(k_q=torch.stack([k[0] for k in ks]),
-                            k_scale=torch.stack([k[1] for k in ks]),
-                            v_q=torch.stack([v[0] for v in vs]),
-                            v_scale=torch.stack([v[1] for v in vs]))
-    return torch.stack(ks), torch.stack(vs)
+        return QuantCrossKV(k_q=ks, k_scale=torch.stack(k_scales),
+                            v_q=vs, v_scale=torch.stack(v_scales))
+    return ks, vs
 
 
 def _cross_layer(cross_kv: CrossKV, layer: int):

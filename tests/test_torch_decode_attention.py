@@ -11,7 +11,11 @@ from taiwan_whisper_tpu.models import whisper as JM
 from taiwan_whisper_tpu.ops.decode_attention import (cross_decode_attention,
                                                      self_decode_attention)
 from taiwan_whisper_tpu_torch.models import whisper as M
-from taiwan_whisper_tpu_torch.ops.decode_attention import cross_attention, self_attention
+from taiwan_whisper_tpu_torch.ops.decode_attention import (ROW_ALIGN, SELF_SPAN_BYTES, SPAN_ALIGN,
+                                                           _check_rows, cross_attention,
+                                                           decode_split, padded_length,
+                                                           self_attention, time_minor_copy,
+                                                           time_minor_zeros)
 
 
 def _t(x):
@@ -82,3 +86,47 @@ def test_self_matches_pallas(index, valid_from):
                           index, torch.from_numpy(vf))
     assert ours.dtype == torch.float32
     np.testing.assert_allclose(ours.numpy(), ref, atol=1e-5)
+
+
+@pytest.mark.parametrize("elem", [1, 2])
+@pytest.mark.parametrize("cluster", [2, 4, 8])
+def test_decode_split_at_the_encoder_length(elem, cluster):
+    """The cluster split the kernels launch with at T = 1500 (fp8/int8 and
+    bf16 rows): spans on 16 positions (16-byte copies for every storage
+    type), every block owning positions, all of T covered."""
+    c, span = decode_split(1500, elem, cluster)
+    assert c == cluster and span == {2: 752, 4: 384, 8: 192}[cluster]
+    assert span % SPAN_ALIGN == 0 and span * elem % 16 == 0
+    assert (c - 1) * span < 1500 <= c * span
+
+
+def test_decode_split_defaults():
+    assert decode_split(1500, 1) == (2, 752)  # fp8 cross K/V of the label path
+    assert decode_split(1500, 2) == (4, 384)
+    assert decode_split(1500, 4) == (8, 192)
+    assert decode_split(3000, 4) == (8, 384)  # no cluster fits 768 B: the largest
+    assert decode_split(0, 2) == (1, 16)  # an empty cache: one block, current token only
+    assert decode_split(3, 2, span_bytes=SELF_SPAN_BYTES) == (1, 16)
+    assert decode_split(194, 2, span_bytes=SELF_SPAN_BYTES) == (1, 208)  # the label path's last
+    assert decode_split(209, 2, span_bytes=SELF_SPAN_BYTES) == (2, 112)
+    with pytest.raises(ValueError, match="clusters"):
+        decode_split(1500, 1, 3)
+
+
+@pytest.mark.parametrize("t,dtype", [(1500, torch.float8_e4m3fn), (1500, torch.int8),
+                                     (1500, torch.bfloat16), (1500, torch.float32),
+                                     (195, torch.bfloat16), (35, torch.float32)])
+def test_time_minor_storage_rows_start_on_128_bytes(t, dtype):
+    x = time_minor_zeros((2, 3, 64, t), dtype, "cpu")
+    elem = x.element_size()
+    assert x.shape == (2, 3, 64, t) and x.stride(-1) == 1
+    assert x.stride(-2) == padded_length(t, elem) >= t
+    assert x.stride(-2) * elem % ROW_ALIGN == 0 and x.stride(-2) * elem < t * elem + ROW_ALIGN
+    _check_rows(x, x.stride(), "test")  # accepted
+    y = time_minor_copy(torch.arange(2 * 3 * 64 * t).reshape(2, 3, 64, t).to(dtype))
+    assert y.stride() == x.stride() and torch.equal(y.float(), torch.arange(
+        2 * 3 * 64 * t).reshape(2, 3, 64, t).to(dtype).float())
+    if t * elem % 16:  # a contiguous tensor of these rows cannot take the 16-byte copies
+        with pytest.raises(ValueError, match="16 bytes"):
+            bad = torch.zeros((2, 3, 64, t), dtype=dtype)
+            _check_rows(bad, bad.stride(), "test")
