@@ -171,11 +171,31 @@ def kernel_device_ms(fn, torch, calls: int = 5) -> dict:
             if e.self_device_time_total > 0}
 
 
-def device_times(key: str, fn, library_fn, torch, checks: list):
+def host_us(fn, torch, calls: int = 200) -> float:
+    """Host microseconds per call of ``fn()`` issued back to back: what the
+    wrapper costs the host, the card's work queued behind it."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
+
+
+def device_times(key: str, fn, library_fn, torch, checks: list, host: bool = False):
     """Back-to-back and per-kernel device times of a kernel's wrapper and,
     where one exists, of the PyTorch call that computes the same function,
-    beside the flushed single calls ``record`` times."""
+    beside the flushed single calls ``record`` times. ``host``: also the
+    host microseconds per wrapper call, and a second call whose output must
+    be bitwise equal to the first (the decode kernels use no atomics)."""
     t = dict(loop_ms=loop_ms(fn, torch), kernels_ms=kernel_device_ms(fn, torch))
+    if not t["kernels_ms"]:
+        raise AssertionError(f"{key}: the profiler traced no kernel of the wrapper's call")
+    if host:
+        first, again = fn(), fn()
+        t.update(host_us=host_us(fn, torch), bitwise_equal=torch.equal(first, again))
     if library_fn is not None:
         t.update(library_loop_ms=loop_ms(library_fn, torch),
                  library_kernels_ms=kernel_device_ms(library_fn, torch))
@@ -183,7 +203,12 @@ def device_times(key: str, fn, library_fn, torch, checks: list):
         if side + "loop_ms" in t:
             log(f"[kernel] {key} {who} back-to-back {t[side + 'loop_ms']:.4f} ms; "
                 + ", ".join(f"{k} {ms:.4f}" for k, ms in t[side + "kernels_ms"].items()))
+    if host:
+        log(f"[kernel] {key} host {t['host_us']:.1f} us per call; a rerun bitwise equal: "
+            f"{t['bitwise_equal']}")
     checks.append(dict(check=f"{key} device times", **t))
+    if host and not t["bitwise_equal"]:
+        raise AssertionError(f"{key}: a second call's output differs from the first")
 
 
 def bf16_ulp(x: float) -> float:
@@ -273,19 +298,6 @@ def self_sdpa(torch, q, ck, cv, k_t, v_t, index, vf):
     return lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask, scale=1.0)
 
 
-def host_us(fn, torch, calls: int = 200) -> float:
-    """Host microseconds per call of ``fn()`` issued back to back: what the
-    wrapper costs the host, the card's work queued behind it."""
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(calls):
-        fn()
-    t1 = time.perf_counter()
-    torch.cuda.synchronize()
-    return (t1 - t0) / calls * 1e6
-
-
 def decode_edge_cases(torch, DA, checks, g, dev):
     """The decode kernels away from the main path's layout: a cross K/V
     that is contiguous, not row-padded (fp8 rows of 1500 bytes cannot take
@@ -341,88 +353,6 @@ def decode_edge_cases(torch, DA, checks, g, dev):
         f"{json.dumps(expected)}")
     if launches != expected:
         raise AssertionError(f"decode edge-case launch counts {launches} != expected {expected}")
-
-
-def decode_timings(torch, DA, checks, flush, sweep: bool = False) -> dict:
-    """The decode kernels at the label path's shapes (large-v2, batch 32):
-    cross with fp8 K/V and 1 and 3 query rows, self bf16 at index 3, 97 and
-    194 of a 195-position cache. Each is held against its plain version
-    (1e-3), called twice for bitwise equality (no atomics), and timed:
-    flushed single calls, back to back, per kernel (torch.profiler) and the
-    host microseconds per wrapper call; SDPA over the same cache positions
-    beside the self kernel. ``DA`` is the decode-attention module under
-    test, storing K/V as its own model does (``tools/bench_decode_attention``
-    hands in another checkout's); ``sweep`` also runs every cluster size the
-    wrapper takes."""
-    import inspect
-
-    dev = flush.device
-    g = torch.Generator(device=dev).manual_seed(4)
-    B, H, D, T, S = LARGE_V2_BATCH, 20, 64, 1500, 3 + MAX_DECODE_TOKENS
-    store = getattr(DA, "time_minor_copy", lambda x: x.contiguous())
-    clusters = ((None,) + tuple(DA.CLUSTERS)
-                if sweep and "cluster" in inspect.signature(DA.cross_attention).parameters
-                else (None,))
-    out = {}
-
-    def measure(key, fn, plain, bound, library=None, out_scale=1.0):
-        """``out_scale``: the V scale the model applies next; the error is
-        read after it."""
-        got, again = fn(), fn()
-        err, same = max_abs(got * out_scale, plain() * out_scale), torch.equal(got, again)
-        t = dict(max_abs_err=err, bitwise_equal=same, ms=time_ms(fn, torch, iters=20, flush=flush),
-                 loop_ms=loop_ms(fn, torch), kernels_ms=kernel_device_ms(fn, torch),
-                 host_us=host_us(fn, torch), bound_ms=bound[0])
-        if library is not None:
-            t.update(library_max_abs_err=max_abs(library().reshape(got.shape) * out_scale,
-                                                 plain() * out_scale),
-                     library_ms=time_ms(library, torch, iters=20, flush=flush),
-                     library_loop_ms=loop_ms(library, torch),
-                     library_kernels_ms=kernel_device_ms(library, torch))
-        kern = sum(t["kernels_ms"].values())
-        log(f"[decode] {key}: err {err:.3g} (tol 1e-3), bitwise equal on a rerun {same}; "
-            f"flushed {t['ms']:.4f} ms, back-to-back {t['loop_ms']:.4f} ms, per kernel "
-            + ", ".join(f"{k} {ms:.4f}" for k, ms in t["kernels_ms"].items())
-            + f"; bound {bound[0]:.4f} ms ({bound[1]}), share "
-            + (f"{bound[0] / kern:.1%}" if kern > 0 else "not measured (no kernel traced)")
-            + f" of the device time; host {t['host_us']:.1f} us per call"
-            + ("" if library is None else
-               f"; SDPA (err {t['library_max_abs_err']:.3g}) flushed {t['library_ms']:.4f} ms, "
-               f"back-to-back "
-               f"{t['library_loop_ms']:.4f} ms, per kernel "
-               + ", ".join(f"{k} {ms:.4f}" for k, ms in t["library_kernels_ms"].items())))
-        checks.append(dict(check=f"{key} device times", **t))
-        out[key] = t
-        if not (err <= 1e-3 and same):
-            raise AssertionError(f"{key}: err {err:.3g}, bitwise equal on a rerun {same}")
-
-    base = torch.randn((B, H, D, T), generator=g, device=dev)
-    k, v = store((base * 50).to(torch.float8_e4m3fn)), store((base * 25).to(torch.float8_e4m3fn))
-    del base
-    for rows in (1, 3):
-        q = (torch.randn((B, rows, H, D), generator=g, device=dev) * 0.0025).to(torch.bfloat16)
-        for c in clusters if rows == 1 else (None,):
-            kw = {} if c is None else {"cluster": c}
-            measure(f"cross_attention[bf16 q,fp8,rows={rows}" + ("" if c is None else f",C={c}")
-                    + "]", lambda: DA.cross_attention(q, k, v, **kw),
-                    lambda: DA.cross_attention_plain(q, k, v), cross_bound(q, k), out_scale=1 / 25)
-    del k, v
-    ck, cv = (store(torch.randn((B, H, D, S), generator=g, device=dev).to(torch.bfloat16))
-              for _ in range(2))
-    q, k_t, v_t = (torch.randn((B, H, D), generator=g, device=dev).to(torch.bfloat16)
-                   for _ in range(3))
-    q = q * 0.125
-    for index in (3, 97, 194):
-        for c in clusters:
-            if c is not None and (c - 1) * DA.decode_split(index, 2, c)[1] >= index:
-                continue  # a block with nothing to read
-            kw = {} if c is None else {"cluster": c}
-            measure(f"self_attention[bf16,index={index}" + ("" if c is None else f",C={c}") + "]",
-                    lambda: DA.self_attention(q, ck, cv, k_t, v_t, index, **kw),
-                    lambda: DA.self_attention_plain(q, ck, cv, k_t, v_t, index, None),
-                    self_bound(q, index, None),
-                    self_sdpa(torch, q, ck, cv, k_t, v_t, index, None) if c is None else None)
-    return out
 
 
 def phase_kernels(torch, entries: dict, checks: list):
@@ -530,7 +460,9 @@ def phase_kernels(torch, entries: dict, checks: list):
     # the probabilities are rounded to bf16 on both sides, and a fp32
     # summation-order difference can move one across a bf16 rounding
     # boundary. Tolerance 1e-5 for fp32 q: nothing is rounded below fp32,
-    # only the summation order differs.
+    # only the summation order differs. The label path's cases (bf16 q, fp8
+    # storage, 1 and 3 rows) are also timed back to back, per kernel and on
+    # the host, with a bitwise rerun.
     def cross_cases(b, h, q_dtype, stores, tol, entry):
         base = torch.randn((b, h, D, T), generator=g, device=dev)
         for store, (kq, vq, q_scale, v_scale) in stores(base).items():
@@ -543,15 +475,18 @@ def phase_kernels(torch, entries: dict, checks: list):
                     qh, kh, vh = qs.transpose(1, 2), kq.transpose(-1, -2), vq.transpose(-1, -2)
                     lib = time_ms(lambda: F.scaled_dot_product_attention(
                         qh, kh, vh, scale=1.0), torch, flush=flush)
+                key = f"cross_attention[{str(q_dtype)[6:]} q,{store},rows={rows}]"
                 row = record(
-                    f"cross_attention[{str(q_dtype)[6:]} q,{store},rows={rows}]",
-                    "cross_decode_attention", DECODE_SRC, CROSS_REP,
+                    key, "cross_decode_attention", DECODE_SRC, CROSS_REP,
                     DA.cross_attention(qs, kq, vq) * v_scale,
                     DA.cross_attention_plain(qs, kq, vq) * v_scale, tol,
                     time_ms(lambda: DA.cross_attention(qs, kq, vq), torch, iters=20,
                             flush=flush),
                     time_ms(lambda: DA.cross_attention_plain(qs, kq, vq), torch, flush=flush),
                     cross_bound(qs, kq), lib)
+                if (q_dtype, store) == (bf16, "fp8"):
+                    device_times(key, lambda: DA.cross_attention(qs, kq, vq), None, torch,
+                                 checks, host=True)
                 if (store, rows) == entry:
                     entries["cross_decode_attention"] = row
 
@@ -572,39 +507,52 @@ def phase_kernels(torch, entries: dict, checks: list):
     # valid_from (what the label path passes: the kernel's null-pointer
     # branch) and with a mixed valid_from; fp32 at the agree phase's shapes
     # with no valid_from. Tolerances 1e-3 (bf16) and 1e-5 (fp32) as for
-    # cross. The library yardstick of the label path's case is SDPA over
-    # the same cache positions with the current token written at `index`.
-    def self_case(b, h, s, dtype, vf, tol):
-        index = s - 1
+    # cross. The label path's case is also held at index 3 and 97 (a step
+    # early and half way through the budget) and timed back to back, per
+    # kernel and on the host, with a bitwise rerun; its library yardstick
+    # is SDPA over the same cache positions with the current token written
+    # at `index` (it does not round P to bf16 before P V, so it differs from
+    # the plain version by more than the tolerance: logged, not held).
+    def self_case(b, h, s, dtype, vf, tol, index=None):
+        index = s - 1 if index is None else index
         ck, cv = (DA.time_minor_copy(torch.randn((b, h, D, s), generator=g, device=dev)
                                      .to(dtype)) for _ in range(2))
         qs, k_t, v_t = (torch.randn((b, h, D), generator=g, device=dev).to(dtype)
                         for _ in range(3))
         qs = qs * 0.125
-        lib = None
-        if dtype == bf16 and vf is None:
+        key = (f"self_attention[{str(dtype)[6:]},valid_from={'none' if vf is None else 'mixed'},"
+               f"index={index}]")
+        label_path = dtype == bf16 and vf is None
+        plain = DA.self_attention_plain(qs, ck, cv, k_t, v_t, index, vf)
+        sdpa = lib = None
+        if label_path:
             sdpa = self_sdpa(torch, qs, ck, cv, k_t, v_t, index, vf)
             lib = time_ms(sdpa, torch, flush=flush)
-        key = f"self_attention[{str(dtype)[6:]},valid_from={'none' if vf is None else 'mixed'}]"
-        return record(
+            log(f"[kernel] {key} SDPA differs from the plain version by "
+                f"{max_abs(sdpa().reshape(plain.shape), plain):.3g}")
+        row = record(
             key, "self_decode_attention", DECODE_SRC, SELF_REP,
-            DA.self_attention(qs, ck, cv, k_t, v_t, index, vf),
-            DA.self_attention_plain(qs, ck, cv, k_t, v_t, index, vf), tol,
+            DA.self_attention(qs, ck, cv, k_t, v_t, index, vf), plain, tol,
             time_ms(lambda: DA.self_attention(qs, ck, cv, k_t, v_t, index, vf), torch,
                     iters=20, flush=flush),
             time_ms(lambda: DA.self_attention_plain(qs, ck, cv, k_t, v_t, index, vf), torch,
                     flush=flush),
             self_bound(qs, index, vf), lib)
+        if label_path:
+            device_times(key, lambda: DA.self_attention(qs, ck, cv, k_t, v_t, index, vf), sdpa,
+                         torch, checks, host=True)
+        return row
 
     S = 3 + MAX_DECODE_TOKENS
     entries["self_decode_attention"] = self_case(B, H, S, bf16, None, 1e-3)
+    for index in (3, 97):
+        self_case(B, H, S, bf16, None, 1e-3, index)
     self_case(B, H, S, bf16, torch.randint(0, 3, (B,), generator=g, device=dev,
                                            dtype=torch.int32), 1e-3)
     self_case(AB, AH, AS, f32, None, 1e-5)
     attention_backward_cases(torch, entries, checks, record, g, flush)
     layer_norm_cases(torch, entries, record, g, flush)
     decode_edge_cases(torch, DA, checks, g, dev)
-    decode_timings(torch, DA, checks, flush)
 
 
 def attention_backward_cases(torch, entries, checks, record, g, flush):

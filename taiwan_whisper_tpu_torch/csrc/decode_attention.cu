@@ -53,6 +53,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <atomic>
+
 #include "hopper_attention.cuh"
 
 namespace cg = cooperative_groups;
@@ -69,6 +71,7 @@ constexpr int MAX_ROWS = 8;
 constexpr int SPAN_ALIGN = 16;     // positions: 16 bytes of fp8, 32 of bf16, 64 of fp32
 constexpr int MAX_SMEM = 232448;   // the 227 KB one block may take on an H100
 constexpr int QSTRIDE = D + 8;     // floats per staged q row (see q_at)
+constexpr int MAX_DEVICES = 64;    // devices whose kernel attributes are cached
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -437,15 +440,21 @@ int launch(const Args& a, int B, cudaStream_t st) {
   const size_t smem = smem_bytes(SELF, a.span, sizeof(TKV), ROWS, a.cluster);
   if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
   auto kern = attend<TQ, TKV, ROWS, SELF>;
-  // once per kernel: the largest dynamic shared memory any split may ask
-  // for, and all of the SM's L1 / shared split given to shared memory
-  static const cudaError_t attr = [&] {
-    const cudaError_t e =
-        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
-    return e != cudaSuccess ? e : cudaFuncSetAttribute(
-        kern, cudaFuncAttributePreferredSharedMemoryCarveout, (int)cudaSharedmemCarveoutMaxShared);
-  }();
-  if (attr != cudaSuccess) return (int)attr;
+  // once per kernel and device (function attributes belong to a device's
+  // context): the largest dynamic shared memory any split may ask for, and
+  // all of the SM's L1 / shared split given to shared memory
+  static std::atomic<bool> attr_set[MAX_DEVICES];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev >= MAX_DEVICES || !attr_set[dev].load(std::memory_order_acquire)) {
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+    if (e != cudaSuccess) return (int)e;
+    if (dev < MAX_DEVICES) attr_set[dev].store(true, std::memory_order_release);
+  }
   cudaLaunchAttribute at[1];
   at[0].id = cudaLaunchAttributeClusterDimension;
   at[0].val.clusterDim.x = (unsigned)a.cluster;
@@ -458,7 +467,7 @@ int launch(const Args& a, int B, cudaStream_t st) {
   cfg.stream = st;
   cfg.attrs = at;
   cfg.numAttrs = a.cluster > 1 ? 1 : 0;
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, kern, a);
+  e = cudaLaunchKernelEx(&cfg, kern, a);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

@@ -127,10 +127,8 @@ def cross_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> 
     return torch.einsum("bhqt,bhdt->bqhd", probs.float(), v.to(dtype).float())
 
 
-def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    cluster: Optional[int] = None) -> torch.Tensor:
-    """Cross-attention of 1-8 query rows per (b, h): fp32 [B, R, H, Dh].
-    ``cluster`` overrides the blocks per (b, h) that ``decode_split`` picks."""
+def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Cross-attention of 1-8 query rows per (b, h): fp32 [B, R, H, Dh]."""
     if q.device.type == "cpu":
         return cross_attention_plain(q, k, v)
     _build.require_cuda(q, k, v)
@@ -147,7 +145,7 @@ def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("q needs a contiguous head dim and k/v a contiguous time axis")
     _check_rows(k, ks, "cross attention")
     _check_rows(v, vs, "cross attention")
-    c, span = decode_split(t, k.element_size(), cluster)
+    c, span = decode_split(t, k.element_size())
     out = torch.empty((b, r, h, d), device=q.device, dtype=torch.float32)
     _build.check(_kernel("twt_cross_attention")(
         _build.dtype_code(q), _build.dtype_code(k), b, h, r, t, c, span,
@@ -179,10 +177,8 @@ def self_attention_plain(q, cache_k, cache_v, k_t, v_t, index: int,
 
 
 def self_attention(q, cache_k, cache_v, k_t, v_t, index: int,
-                   valid_from: Optional[torch.Tensor] = None, *,
-                   cluster: Optional[int] = None) -> torch.Tensor:
-    """One-token self-attention over the cache + current token: fp32 [B, H, Dh].
-    ``cluster`` overrides the blocks per (b, h) that ``decode_split`` picks."""
+                   valid_from: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One-token self-attention over the cache + current token: fp32 [B, H, Dh]."""
     if q.device.type == "cpu":
         return self_attention_plain(q, cache_k, cache_v, k_t, v_t, index, valid_from)
     _build.require_cuda(q, cache_k, cache_v, k_t, v_t)
@@ -203,7 +199,7 @@ def self_attention(q, cache_k, cache_v, k_t, v_t, index: int,
     if valid_from is not None:  # None reaches the kernel as a null pointer: no floor
         _build.require_cuda(q, valid_from)
         valid_from = valid_from.to(torch.int32).contiguous()
-    c, span = decode_split(index, q.element_size(), cluster, SELF_SPAN_BYTES)
+    c, span = decode_split(index, q.element_size(), span_bytes=SELF_SPAN_BYTES)
     out = torch.empty((b, h, d), device=q.device, dtype=torch.float32)
     _build.check(_kernel("twt_self_attention")(
         _build.dtype_code(q), b, h, index, c, span,
