@@ -2,22 +2,26 @@
 
     python3 chip_smoke.py            # every phase, as a release check runs it
     python3 chip_smoke.py kernels    # only the named phases
-                                     # (kernels, label, train, train_agree, agree)
+                                     # (kernels, label, train, train_agree, agree;
+                                     # mel, layer_norm: those kernels' main cases)
 
 Phases, each raising on failure:
 
 1. build   — compiles every CUDA kernel of taiwan_whisper_tpu_torch from
    the checkout's csrc/ (one nvcc per source, all started together);
-   prints ptxas's register and spill lines and, from ``cuobjdump -sass``,
-   the count of wgmma (HGMMA) and TMA-load (UTMALDG) instructions in the
-   two attention libraries (fails if either is 0).
+   prints ptxas's register and spill lines, each library's spilled bytes
+   and, from ``cuobjdump -sass``, the count of wgmma (HGMMA) and TMA-load
+   (UTMALDG) instructions in the two attention libraries (fails if either
+   is 0).
 2. kernels — calls each kernel's wrapper, in every variant a driven path
    launches, and holds it against its plain PyTorch version on the same
    inputs, with the tolerance stated beside it: bf16 at the labelling
    path's shapes (large-v2, batch 32) and the finetune path's (the
    encoder attention's LSE and backward at batch 8), fp32 at the agree
-   phases' (base, batch 4), and the LayerNorm kernel (on no path, as in
-   the JAX package) at the encoder's LN shape. The attention kernels are
+   phases' (base, batch 4), the log-mel kernel at 32 x 30 s and with 128
+   mels, and the LayerNorm kernel (on no path, as in the JAX package) at
+   the encoder's LN shape and at d = 384 and 4096; fails if ptxas spilled
+   in the mel or LayerNorm kernels. The attention kernels are
    also held, both directions, at S = 300, at B = 1 and on q/k/v that are
    strided views of one [B, S, 3, H, 64] buffer, with their launch
    counters checked; the decode kernels on a contiguous (not row-padded)
@@ -25,12 +29,15 @@ Phases, each raising on failure:
    and at B = 1, counters checked too. Times kernel, plain version
    and, where one exists, the one PyTorch call that computes the same
    function (CUDA events, median, L2 flushed before every launch); for
-   the bf16 attention forward, forward with LSE and backward, and for the
+   the bf16 attention forward, forward with LSE and backward, for the
    decode kernels at the label path's shapes (cross fp8 with 1 and 3
-   rows, self bf16 at index 3, 97 and 194), also the mean of back-to-back
-   calls and each kernel's device time (torch.profiler), for SDPA too;
-   for the decode kernels the host microseconds per wrapper call and a
-   rerun that must be bitwise equal.
+   rows, self bf16 at index 3, 97 and 194), for the log-mel kernel at
+   32 x 30 s and for LayerNorm at the encoder's shape, also the mean of
+   back-to-back calls and each kernel's device time (torch.profiler), for
+   SDPA and F.layer_norm too; for the decode, log-mel and LayerNorm
+   kernels the host microseconds per wrapper call and a rerun that must
+   be bitwise equal, and for log-mel and LayerNorm that the wrapper's call
+   launches one kernel.
 3. label   — the port's ``cli label`` at full large-v2 width with random
    bf16 weights from a seed: 8 synthetic WAVs of 170 s (64 chunks, two
    batches of 32), fp8 cross-KV, VAD off, 192-token budget. Every launch
@@ -64,6 +71,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -158,17 +166,27 @@ def loop_ms(fn, torch, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kernel_device_ms(fn, torch, calls: int = 5) -> dict:
+def kernel_device_ms(key: str, fn, torch, calls: int = 5, tries: int = 3) -> dict:
     """Device milliseconds per call of each kernel ``fn()`` launches, by
-    kernel name (torch.profiler)."""
+    kernel name (torch.profiler). CUPTI now and then hands back a short
+    trace with none or only some of its kernels; a trace in which a kernel
+    was not seen a whole number of times per call is taken again, up to
+    ``tries`` traces, and the last one's shortfall raises."""
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return {e.key[:80]: e.self_device_time_total / 1e3 / calls for e in prof.key_averages()
-            if e.self_device_time_total > 0}
+    for attempt in range(1, tries + 1):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        seen = {e.key: e for e in prof.key_averages() if e.self_device_time_total > 0}
+        if seen and all(e.count % calls == 0 for e in seen.values()):
+            return {k[:80]: e.self_device_time_total / 1e3 / calls for k, e in seen.items()}
+        log(f"[kernel] {key}: trace {attempt} of {tries} holds "
+            + (", ".join(f"{k[:80]} x{e.count}" for k, e in seen.items()) or "no kernel")
+            + f" over {calls} calls")
+    raise AssertionError(f"{key}: the profiler traced no whole set of the call's kernels "
+                         f"in {tries} traces")
 
 
 def host_us(fn, torch, calls: int = 200) -> float:
@@ -190,15 +208,13 @@ def device_times(key: str, fn, library_fn, torch, checks: list, host: bool = Fal
     beside the flushed single calls ``record`` times. ``host``: also the
     host microseconds per wrapper call, and a second call whose output must
     be bitwise equal to the first (the decode kernels use no atomics)."""
-    t = dict(loop_ms=loop_ms(fn, torch), kernels_ms=kernel_device_ms(fn, torch))
-    if not t["kernels_ms"]:
-        raise AssertionError(f"{key}: the profiler traced no kernel of the wrapper's call")
+    t = dict(loop_ms=loop_ms(fn, torch), kernels_ms=kernel_device_ms(key, fn, torch))
     if host:
         first, again = fn(), fn()
         t.update(host_us=host_us(fn, torch), bitwise_equal=torch.equal(first, again))
     if library_fn is not None:
         t.update(library_loop_ms=loop_ms(library_fn, torch),
-                 library_kernels_ms=kernel_device_ms(library_fn, torch))
+                 library_kernels_ms=kernel_device_ms(key + " library", library_fn, torch))
     for side, who in (("", "kernel"), ("library_", "library")):
         if side + "loop_ms" in t:
             log(f"[kernel] {key} {who} back-to-back {t[side + 'loop_ms']:.4f} ms; "
@@ -209,6 +225,16 @@ def device_times(key: str, fn, library_fn, torch, checks: list, host: bool = Fal
     checks.append(dict(check=f"{key} device times", **t))
     if host and not t["bitwise_equal"]:
         raise AssertionError(f"{key}: a second call's output differs from the first")
+    return t
+
+
+def one_kernel(key: str, t: dict):
+    """A wrapper's call must launch its kernel and nothing else (the log-mel
+    wrapper no padding pass, the LayerNorm wrapper no cast): one kernel
+    name in ``device_times``' trace."""
+    if len(t["kernels_ms"]) != 1:
+        raise AssertionError(f"{key}: the wrapper's call launched {sorted(t['kernels_ms'])}, "
+                             f"not one kernel")
 
 
 def bf16_ulp(x: float) -> float:
@@ -224,6 +250,15 @@ def max_abs(a, b) -> float:
 # phases
 # ---------------------------------------------------------------------------
 
+def spill_bytes(name: str) -> int:
+    """Bytes of spill stores and loads over every kernel of one library, from
+    ptxas' lines in its build log."""
+    from taiwan_whisper_tpu_torch.ops import _build
+
+    return sum(int(b) for b in re.findall(r"(\d+) bytes spill (?:stores|loads)",
+                                          _build.build_log(name)))
+
+
 def phase_build():
     from taiwan_whisper_tpu_torch.ops import _build
 
@@ -237,6 +272,8 @@ def phase_build():
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[ptxas {name}] {line.strip()}")
+    log("[spills] " + ", ".join(f"{name} {spill_bytes(name)} bytes"
+                                  for name in _build.sources()))
     # the encoder-attention kernels are built on Hopper's wgmma (HGMMA) and
     # TMA loads (UTMALDG), the decode kernels on 16-byte asynchronous copies
     # (LDGSTS): count them in the built code
@@ -355,17 +392,17 @@ def decode_edge_cases(torch, DA, checks, g, dev):
         raise AssertionError(f"decode edge-case launch counts {launches} != expected {expected}")
 
 
-def phase_kernels(torch, entries: dict, checks: list):
+def phase_kernels(torch, entries: dict, checks: list, only=None):
     """Every kernel variant a driven path launches, held against its plain
     version: the label path's (large-v2, batch 32, bf16, fp8 cross-KV) and
-    the agree phase's (base, batch 4, fp32 policy)."""
+    the agree phase's (base, batch 4, fp32 policy). ``only``: just these
+    groups' main cases ("mel", "layer_norm"), which call nothing but the
+    public wrappers (an A/B runs them against another tree's package)."""
     import torch.nn.functional as F
 
-    from taiwan_whisper_tpu_torch.audio import mel as A
     from taiwan_whisper_tpu_torch.models.config import resolve_device
     from taiwan_whisper_tpu_torch.ops import attention as EA
     from taiwan_whisper_tpu_torch.ops import decode_attention as DA
-    from taiwan_whisper_tpu_torch.ops import mel_kernel as MK
 
     dev = resolve_device("cuda")  # TF32 off: the fp32 plain versions stay fp32
     g = torch.Generator(device=dev).manual_seed(0)
@@ -390,22 +427,16 @@ def phase_kernels(torch, entries: dict, checks: list):
             f"library {library_ms}")
         return row
 
-    # 1. mel: 32 x 30 s of audio. Tolerance 1e-4 on the normalised log-mel:
-    # fp32 throughout, only the summation order differs. The agree phase
-    # runs the same (fp32-only) kernel at batch 4.
-    audio = torch.randn((B, A.N_SAMPLES), generator=g, device=dev) * 0.1
-    got = MK.log_mel(audio)
-    ref = A.log_mel(audio)
-    torch.cuda.synchronize()
-    n_frames, m = A.N_FRAMES, 80
-    flops = 2 * 2 * B * n_frames * A.N_FFT * A.N_FREQS + 2 * B * n_frames * A.N_FREQS * m
-    entries["mel"] = record(
-        "mel", "log_mel", "taiwan_whisper_tpu_torch/csrc/mel.cu",
-        "taiwan_whisper_tpu/ops/mel_kernel.py:60", got, ref, 1e-4,
-        time_ms(lambda: MK.log10_mel_spectrum(audio), torch, flush=flush),
-        time_ms(lambda: A.log10_mel_spectrum(audio), torch, flush=flush),
-        bound_ms(4 * (B * A.N_SAMPLES + B * n_frames * m), flops, "fp32"), None)
-    del audio, got, ref
+    if only is not None:
+        if "mel" in only:
+            mel_cases(torch, entries, checks, record, g, flush)
+        if "layer_norm" in only:
+            layer_norm_cases(torch, entries, checks, record, g, flush)
+        return
+    for name in ("mel", "layer_norm"):
+        if spill_bytes(name) != 0:
+            raise AssertionError(f"{name}: ptxas spilled {spill_bytes(name)} bytes")
+    one_kernel("mel", mel_cases(torch, entries, checks, record, g, flush))
 
     # 2. encoder attention. bf16 [32, 1500, 20, 64] with unit-variance
     # q/k/v: with the in-kernel 1/8 scale the scores have std 1 over 1500
@@ -551,8 +582,52 @@ def phase_kernels(torch, entries: dict, checks: list):
                                            dtype=torch.int32), 1e-3)
     self_case(AB, AH, AS, f32, None, 1e-5)
     attention_backward_cases(torch, entries, checks, record, g, flush)
-    layer_norm_cases(torch, entries, record, g, flush)
+    for key, t in layer_norm_cases(torch, entries, checks, record, g, flush).items():
+        one_kernel(key, t)
+    layer_norm_edge_cases(torch, checks, g, dev)
     decode_edge_cases(torch, DA, checks, g, dev)
+
+
+def mel_bound(b: int, n: int, m: int):
+    """The least time of the log-mel function, whatever computes it: the
+    audio read once and the log-mel written once; per frame a 400-point
+    real FFT (2.5 N log2 N flop), the power (3 flop a bin) and the mel
+    product over the filter bank's nonzeros (2 flop each), at fp32."""
+    from taiwan_whisper_tpu_torch.audio import mel as A
+
+    frames = b * (n // A.HOP_LENGTH)
+    nnz = int(np.count_nonzero(A.mel_filter_bank(m)))
+    per_frame = 2.5 * A.N_FFT * np.log2(A.N_FFT) + 3 * A.N_FREQS + 2 * nnz
+    return bound_ms(4 * (b * n + frames * m), frames * per_frame, "fp32")
+
+
+def mel_cases(torch, entries, checks, record, g, flush):
+    """The log-mel kernel at the label path's shape (32 x 30 s, 80 mels)
+    and once with 128 mels (batch 4), on Gaussian audio. Tolerance 1e-4 on
+    the normalised log-mel: fp32 throughout; the FFT sums in another order
+    than the plain version's DFT products and takes log10 through the
+    hardware's log2 (2.7e-5 apart on the H100). The label case is also timed back to
+    back, per kernel and on the host, with a bitwise rerun; returns those
+    times."""
+    from taiwan_whisper_tpu_torch.audio import mel as A
+    from taiwan_whisper_tpu_torch.ops import mel_kernel as MK
+
+    dev = flush.device
+    src, rep = "taiwan_whisper_tpu_torch/csrc/mel.cu", "taiwan_whisper_tpu/ops/mel_kernel.py:60"
+    for b, m in ((LARGE_V2_BATCH, 80), (AGREE_BATCH, 128)):
+        audio = torch.randn((b, A.N_SAMPLES), generator=g, device=dev) * 0.1
+        key = "mel" if m == 80 else f"mel[{m} mels]"
+        row = record(
+            key, "log_mel", src, rep, MK.log_mel(audio, m), A.log_mel(audio, m), 1e-4,
+            time_ms(lambda: MK.log10_mel_spectrum(audio, m), torch, flush=flush),
+            time_ms(lambda: A.log10_mel_spectrum(audio, m), torch, flush=flush),
+            mel_bound(b, A.N_SAMPLES, m), None)
+        if m == 80:
+            entries["mel"] = row
+            times = device_times(key, lambda: MK.log10_mel_spectrum(audio), None, torch,
+                                 checks, host=True)
+        del audio
+    return times
 
 
 def attention_backward_cases(torch, entries, checks, record, g, flush):
@@ -706,15 +781,20 @@ def attention_edge_cases(torch, checks, g, dev):
         raise AssertionError(f"edge-case launch counts {launches} != expected {expected}")
 
 
-def layer_norm_cases(torch, entries, record, g, flush):
+def layer_norm_cases(torch, entries, checks, record, g, flush):
     """The LayerNorm kernel (not wired into the model, as in the JAX
-    package) at the encoder's LN shape, [32 * 1500, 1280], bf16 and fp32."""
+    package) at the encoder's LN shape, [32 * 1500, 1280], bf16 and fp32,
+    with fp32 scale and bias (the kernel rounds them to x's dtype); also
+    timed back to back, per kernel and on the host, with a bitwise rerun,
+    beside F.layer_norm given scale and bias already in x's dtype; returns
+    those times by case."""
     import torch.nn.functional as F
 
     from taiwan_whisper_tpu_torch.ops import layer_norm as LN
 
     dev = flush.device
     n, d = LARGE_V2_BATCH * 1500, 1280
+    times = {}
     # x ~ 3 N(0,1) + 1, scale 1 + 0.1 N(0,1), bias 0.1 N(0,1): outputs within
     # ~6. bf16 tolerance 3.2e-2, one bf16 ulp at [4, 8): both sides compute
     # the same fp32 value up to summation order and round it once.
@@ -725,8 +805,9 @@ def layer_norm_cases(torch, entries, record, g, flush):
         bias = 0.1 * torch.randn(d, generator=g, device=dev)
         sc, bi = scale.to(dtype), bias.to(dtype)
         kind = "bf16" if dtype == torch.bfloat16 else "fp32"
+        key = f"layer_norm[{kind}]"
         row = record(
-            f"layer_norm[{kind}]", "layer_norm", "taiwan_whisper_tpu_torch/csrc/layer_norm.cu",
+            key, "layer_norm", "taiwan_whisper_tpu_torch/csrc/layer_norm.cu",
             "taiwan_whisper_tpu/ops/layer_norm.py:52",
             LN.layer_norm(x, scale, bias), LN.layer_norm_plain(x, scale, bias), tol,
             time_ms(lambda: LN.layer_norm(x, scale, bias), torch, iters=20, flush=flush),
@@ -734,9 +815,48 @@ def layer_norm_cases(torch, entries, record, g, flush):
             bound_ms(2 * x.numel() * x.element_size() + 2 * d * x.element_size(),
                      8 * x.numel(), kind),
             time_ms(lambda: F.layer_norm(x, (d,), sc, bi, 1e-5), torch, iters=20, flush=flush))
+        times[key] = device_times(key, lambda: LN.layer_norm(x, scale, bias),
+                                  lambda: F.layer_norm(x, (d,), sc, bi, 1e-5), torch, checks,
+                                  host=True)
         if dtype == torch.bfloat16:
             entries["layer_norm"] = row
         del x
+    return times
+
+
+def layer_norm_edge_cases(torch, checks, g, dev):
+    """The LayerNorm kernel away from the encoder's shape, under the same
+    rules (3.2e-2 bf16, 1e-5 fp32, the inputs of layer_norm_cases): d = 384
+    (the last 16-byte packs of a bf16 row on half the lanes) and d = 4096
+    (the streamed route: two passes over the row), each with scale and bias
+    in fp32 and in x's dtype. The launch counters are zeroed first and must
+    count exactly these launches."""
+    from taiwan_whisper_tpu_torch.ops import layer_norm as LN
+
+    zero_counters()
+    cases = 0
+    for n, d in ((600, 384), (300, 4096)):
+        for dtype, tol in ((torch.bfloat16, 3.2e-2), (torch.float32, 1e-5)):
+            x = (torch.randn((n, d), generator=g, device=dev) * 3 + 1).to(dtype)
+            scale = 1 + 0.1 * torch.randn(d, generator=g, device=dev)
+            bias = 0.1 * torch.randn(d, generator=g, device=dev)
+            ref = LN.layer_norm_plain(x, scale, bias)
+            for params in ("fp32", "x's dtype"):
+                sc, bi = (scale, bias) if params == "fp32" else (scale.to(dtype), bias.to(dtype))
+                err = max_abs(LN.layer_norm(x, sc, bi), ref)
+                cases += 1
+                key = f"layer_norm_edge[{str(dtype)[6:]},[{n},{d}],params {params}]"
+                log(f"[kernel] {key}: err {err:.3g} (tol {tol:g})")
+                checks.append(dict(check=key, max_abs_err=err, tolerance=tol))
+                if not err <= tol:
+                    raise AssertionError(f"{key}: err {err:.3g} > {tol:g}")
+    launches = read_counters()
+    expected = dict({k: 0 for k in launches}, layer_norm=cases)
+    log(f"[kernel] layer_norm edge launches {json.dumps(launches)} expected "
+        f"{json.dumps(expected)}")
+    if launches != expected:
+        raise AssertionError(f"layer norm edge-case launch counts {launches} != expected "
+                             f"{expected}")
 
 
 def _synth_wavs(out_dir: str, n: int, seconds: float, seed: int):
@@ -1082,8 +1202,9 @@ def main(argv) -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     phase_build()
     entries, checks, results = {}, [], {}
-    if "kernels" in phases:
-        phase_kernels(torch, entries, checks)
+    groups = [p for p in phases if p in ("mel", "layer_norm")]
+    if "kernels" in phases or groups:
+        phase_kernels(torch, entries, checks, None if "kernels" in phases else groups)
         log("checks " + json.dumps({"checks": checks}))
     with tempfile.TemporaryDirectory() as tmp:
         model_dir = (write_large_v2(tmp, torch)
