@@ -2,8 +2,8 @@
 
     python3 chip_smoke.py            # every phase, as a release check runs it
     python3 chip_smoke.py kernels    # only the named phases
-                                     # (kernels, label, train, train_agree, agree;
-                                     # mel, layer_norm: those kernels' main cases)
+                                     # (kernels, label, label_vad, train, train_agree,
+                                     # agree; mel, layer_norm: those kernels' main cases)
 
 Phases, each raising on failure:
 
@@ -40,10 +40,23 @@ Phases, each raising on failure:
    launches one kernel.
 3. label   — the port's ``cli label`` at full large-v2 width with random
    bf16 weights from a seed: 8 synthetic WAVs of 170 s (64 chunks, two
-   batches of 32), fp8 cross-KV, VAD off, 192-token budget. Every launch
-   counter is zeroed just before and read just after, and must equal the
-   count this run implies.
-4. train   — stage 3 at full large-v2 width from the same checkpoint:
+   batches of 32), fp8 cross-KV, VAD off, the staged chunk route, 192-token
+   budget. Every launch counter is zeroed just before and read just after,
+   and must equal the count this run implies.
+4. label_vad — on 8 FLAC files of 170 s of speech-like lecture audio
+   (bursts between silent gaps), first the device VAD scorer on the card
+   against the same scorer on the CPU, on the corpus's int16 segments:
+   scores within ``VAD_TOL`` and equal regions; the VAD must keep more
+   than none and less than all of the audio. Then ``cli label
+   @configs/label_large_v2.args`` as shipped (no --vad_mode, no
+   --wire_mode: spectral VAD scored on the card, and the auto wire mode
+   takes the device-resident driver), same checkpoint and budget; then
+   the staged chunk route, then the resident route with ``--group_segs
+   3`` (groups sealing mid-file, batches spanning two buffers), on the
+   same corpus. Each run's launch counters are checked as in label, the
+   shipped run must report at least one group and the group_segs run
+   more, all three must cut the same chunks and write byte-equal CSVs.
+5. train   — stage 3 at full large-v2 width from the same checkpoint:
    ``cli init-student`` (32-2), ``cli distill`` (ce 0.8, kl 1.0, T 2,
    fp32 masters, bf16 compute, frozen encoder) at batch 32, and at the
    shipped 64 when twice the batch-32 peak memory fits the card, then
@@ -53,11 +66,11 @@ Phases, each raising on failure:
    loss must fall; launch counters are checked per run (distill: mel 1
    and encoder forward 32 per step; finetune: mel 1, encoder forward 64,
    as each checkpointed layer runs twice, and backward 32 per step).
-5. train_agree — a small config (d 256, S 300: a ragged key tile) at the
+6. train_agree — a small config (d 256, S 300: a ragged key tile) at the
    fp32 policy with TF32 off, trainable encoder: three train steps on the
    card and on the CPU plain path; losses agree to 1e-4 relative and the
    updated params to 1e-5, launch counters checked.
-6. agree   — the base preset at batch 4, fp32 policy with TF32 off, greedy
+7. agree   — the base preset at batch 4, fp32 policy with TF32 off, greedy
    for 32 tokens on the card and on the CPU plain path; token agreement
    must be at least 0.98 of positions, and the launch counters, zeroed
    just before the card's run, must equal the count that run implies.
@@ -90,6 +103,8 @@ AGREE_BATCH, AGREE_TOKENS = 4, 32
 FINETUNE_BATCH = 8
 DISTILL_STEPS, FINETUNE_STEPS = 6, 5
 CARD_BYTES = 76e9  # what a run may plan to hold of the card's 80 GB
+# card vs CPU device VAD scorer (both fp32; cuFFT against pocketfft)
+VAD_TOL = dict(energy_db=1e-2, flatness=1e-3, mod_ratio=1e-3)
 
 
 def kernel_counters():
@@ -893,6 +908,16 @@ def write_large_v2(tmp: str, torch) -> str:
     return model_dir
 
 
+def label_launches(cfg, batches: int) -> dict:
+    """Kernel launches of ``batches`` label batches: random weights never
+    emit eot, so every batch runs the whole token budget."""
+    return {"mel": batches, "encoder_attention": batches * cfg.encoder_layers,
+            "encoder_attention_bwd": 0,
+            "cross_decode_attention": batches * cfg.decoder_layers * (1 + MAX_DECODE_TOKENS),
+            "self_decode_attention": batches * cfg.decoder_layers * MAX_DECODE_TOKENS,
+            "layer_norm": 0}
+
+
 def phase_label(torch, entries: dict, results: dict, model_dir: str):
     from taiwan_whisper_tpu_torch import cli, get_config
     from taiwan_whisper_tpu_torch.audio.manifest import Manifest, write_manifest
@@ -910,7 +935,8 @@ def phase_label(torch, entries: dict, results: dict, model_dir: str):
         stats = cli.main([
             "label", "--manifest", manifest, "--model", model_dir, "--output_dir", out_dir,
             "--batch_size", str(LARGE_V2_BATCH), "--quantize_kv", "fp8", "--language", "zh",
-            "--vad_mode", "off", "--max_decode_tokens", str(MAX_DECODE_TOKENS)])
+            "--vad_mode", "off", "--wire_mode", "chunks",
+            "--max_decode_tokens", str(MAX_DECODE_TOKENS)])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = read_counters()
@@ -920,11 +946,7 @@ def phase_label(torch, entries: dict, results: dict, model_dir: str):
             with open(os.path.join(out_dir, n), encoding="utf-8") as f:
                 rows += sum(1 for _ in f) - 1
     batches = stats["batches"]
-    expected = {"mel": batches, "encoder_attention": batches * cfg.encoder_layers,
-                "encoder_attention_bwd": 0,
-                "cross_decode_attention": batches * cfg.decoder_layers * (1 + MAX_DECODE_TOKENS),
-                "self_decode_attention": batches * cfg.decoder_layers * MAX_DECODE_TOKENS,
-                "layer_norm": 0}
+    expected = label_launches(cfg, batches)
     rate = stats["audio_seconds"] / stats["wall_seconds"]
     log(f"[label] {stats['files']} files, {stats['chunks']} chunks, {batches} batches: "
         f"{rate:.2f} audio-s/s (label_files wall {stats['wall_seconds']:.2f} s, cli wall "
@@ -939,6 +961,155 @@ def phase_label(torch, entries: dict, results: dict, model_dir: str):
     results["label"] = dict(audio_s_per_s=rate, wall_seconds=stats["wall_seconds"],
                             cli_wall_seconds=wall, chunks=stats["chunks"], batches=batches,
                             csvs=len(csvs), segment_rows=rows)
+
+
+def vad_agree(torch, results: dict, audio_paths):
+    """The device spectral scorer on the card against the same scorer on
+    the CPU, on the label_vad corpus's int16 segments: energy within
+    VAD_TOL["energy_db"] dB, flatness and modulation ratio within theirs,
+    and equal regions per file. The modulation ratio is compared on blocks
+    above the VAD's absolute floor (-65 dB) only: a block below it never
+    passes the energy gate, and in digital silence the ratio divides
+    rounding residues. Returns the seconds of the card's regions."""
+    from taiwan_whisper_tpu_torch.audio.io import load_audio_16k
+    from taiwan_whisper_tpu_torch.models.config import resolve_device
+    from taiwan_whisper_tpu_torch.pipeline import vad
+
+    resolve_device("cuda")  # fp32 matmuls in fp32, not TF32
+    audios = [load_audio_16k(p) for p in audio_paths]
+    segs = [vad._file_segments(a) for a in audios]
+    flat = np.concatenate(segs)
+    card = vad._score_segments(flat, "cuda")
+    cpu = vad._score_segments(flat, "cpu")
+    floor = vad.SpectralVadConfig.abs_floor_db
+    err, regions_equal, pos = dict(energy_db=0.0, flatness=0.0, mod_ratio=0.0), True, 0
+    kept = 0.0
+    for audio, s in zip(audios, segs):
+        total = len(audio) / 16000
+        dc = vad._scores_dict(card[pos: pos + len(s)], total)
+        dh = vad._scores_dict(cpu[pos: pos + len(s)], total)
+        pos += len(s)
+        loud = dh["energy_db"] > floor
+        err["energy_db"] = max(err["energy_db"], float(np.abs(dc["energy_db"] - dh["energy_db"]).max()))
+        err["flatness"] = max(err["flatness"], float(np.abs(dc["flatness"] - dh["flatness"]).max()))
+        err["mod_ratio"] = max(err["mod_ratio"], float(
+            np.abs(dc["mod_ratio"] - dh["mod_ratio"])[loud].max(initial=0.0)))
+        regions = vad.spectral_speech_regions(audio, scores=dc)
+        regions_equal &= regions == vad.spectral_speech_regions(audio, scores=dh)
+        kept += sum(b - a for a, b in regions)
+    # one scorer call: 8 segments in, scores back (CUDA events)
+    call = torch.from_numpy(flat[: vad._VAD_CALL_SEGS]).cuda()
+    scorer = vad._device_scorer("cuda")
+    with torch.inference_mode():
+        call_ms = time_ms(lambda: scorer(call), torch)
+    log(f"[label_vad] card vs CPU scorer on {len(flat)} segments: max |diff| "
+        + ", ".join(f"{k} {v:.3g} (tol {VAD_TOL[k]:g})" for k, v in err.items())
+        + f"; regions equal: {regions_equal}; scorer {call_ms:.3f} ms per call of "
+        f"{vad._VAD_CALL_SEGS} x 120 s segments on the card")
+    results["vad_agree"] = dict(segments=len(flat), max_abs_diff=err, tolerance=VAD_TOL,
+                                regions_equal=regions_equal, scorer_call_ms=call_ms)
+    if not regions_equal or any(err[k] > VAD_TOL[k] for k in VAD_TOL):
+        raise AssertionError(f"card-vs-CPU VAD scores {err} (tolerance {VAD_TOL}), regions "
+                             f"equal {regions_equal}")
+    return kept
+
+
+def _read_csvs(out_dir: str) -> dict:
+    """The bytes of each CSV in ``out_dir``, by file name."""
+    out = {}
+    for n in sorted(os.listdir(out_dir)):
+        if n.endswith(".csv"):
+            with open(os.path.join(out_dir, n), "rb") as f:
+                out[n] = f.read()
+    return out
+
+
+def phase_label_vad(torch, entries: dict, results: dict, model_dir: str):
+    """``cli label`` with the shipped args file and no --vad_mode or
+    --wire_mode: spectral VAD scored on the card, and the auto wire mode
+    resolves to the device-resident driver. FLAC input of speech-like
+    lectures. First the card-vs-CPU scorer check (which also warms the
+    card's scorer), then three runs on the same corpus: the shipped one
+    (one group buffer), the staged chunk route, and the resident route
+    with ``--group_segs 3`` (6 groups of 3 x 120 s: every other file spans
+    two groups, so groups seal mid-file, each of the 3 batches reads rows
+    from its neighbour buffer g+1, and buffers are freed while the upload
+    thread fills the next; ``--group_segs 1`` covers the same in 8
+    batches, each limited to two 120 s groups: 34.7 s on an H100, against
+    about 15 s for 3 batches). The three must write byte-equal CSVs, as
+    the JAX package's tests hold its routes to; the two resident runs
+    bracket the chunk run for the route rates."""
+    from taiwan_whisper_tpu_torch import cli, get_config
+    from taiwan_whisper_tpu_torch.audio.manifest import Manifest, write_manifest
+    from taiwan_whisper_tpu_torch.tools.synth_audio import write_lecture_flacs
+
+    t_phase = time.perf_counter()
+    cfg = get_config("large-v2")
+    args_file = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
+                             "label_large_v2.args")
+    with tempfile.TemporaryDirectory() as tmp:
+        audio_dir = os.path.join(tmp, "audio")
+        os.makedirs(audio_dir)
+        names = write_lecture_flacs(audio_dir, LABEL_FILES, LABEL_SECONDS, seed=0)
+        manifest = os.path.join(tmp, "manifest.tsv")
+        write_manifest(manifest, Manifest(root=audio_dir, paths=names))
+        kept = vad_agree(torch, results, [os.path.join(audio_dir, n) for n in names])
+        total = LABEL_FILES * LABEL_SECONDS
+        log(f"[label_vad] the VAD kept {kept:.1f} s of {total:.1f} s ({kept / total:.3f})")
+        if not 0.0 < kept < total:
+            raise AssertionError(f"the VAD kept {kept} s of {total} s")
+        runs, csvs = {}, {}
+        for route, extra in (("resident", []), ("chunks", ["--wire_mode", "chunks"]),
+                             ("resident_group_segs_3", ["--group_segs", "3"])):
+            out_dir = os.path.join(tmp, route)
+            zero_counters()
+            t0 = time.perf_counter()
+            stats = cli.main([
+                "label", f"@{args_file}", "--manifest", manifest, "--model", model_dir,
+                "--output_dir", out_dir, "--max_decode_tokens", str(MAX_DECODE_TOKENS),
+                *extra])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read_counters()
+            csvs[route] = _read_csvs(out_dir)
+            expected = label_launches(cfg, stats["batches"])
+            rate = stats["audio_seconds"] / stats["wall_seconds"]
+            log(f"[label_vad] {route}: {stats['files']} files, {stats['chunks']} chunks, "
+                f"{stats['batches']} batches, groups {stats.get('groups')}: {rate:.2f} "
+                f"audio-s/s (label_files wall {stats['wall_seconds']:.2f} s, cli wall "
+                f"{wall:.2f} s, decode {stats['decode_s']:.2f} s, vad {stats['vad_s']:.3f} s, "
+                f"upload wait {stats.get('upload_wait_s', 0.0):.3f} s); "
+                f"{len(csvs[route])} CSVs")
+            log(f"[label_vad] {route} launches {json.dumps(launches)} expected "
+                f"{json.dumps(expected)}")
+            if (stats["files"] != LABEL_FILES or len(csvs[route]) != LABEL_FILES
+                    or not stats["batches"]):
+                raise AssertionError(f"label_vad {route} run incomplete: {stats}")
+            if launches != expected:
+                raise AssertionError(f"label_vad {route} launch counts {launches} != "
+                                     f"expected {expected}")
+            add_launches(entries, results, f"label_vad_{route}", launches)
+            runs[route] = dict(audio_s_per_s=rate, wall_seconds=stats["wall_seconds"],
+                               cli_wall_seconds=wall, chunks=stats["chunks"],
+                               batches=stats["batches"], vad_s=stats["vad_s"],
+                               decode_s=stats["decode_s"], groups=stats.get("groups"),
+                               upload_wait_s=stats.get("upload_wait_s"))
+        res, small = runs["resident"], runs["resident_group_segs_3"]
+        if res["groups"] is None or res["groups"] < 1:
+            raise AssertionError(f"the shipped args did not take the resident route: {res}")
+        if small["groups"] is None or small["groups"] <= res["groups"]:
+            raise AssertionError(f"--group_segs 3 did not cut more groups: {runs}")
+        if len({r["chunks"] for r in runs.values()}) != 1:
+            raise AssertionError(f"the runs cut different chunks: {runs}")
+        differ = sorted(n for route in runs for n in csvs["resident"]
+                        if csvs[route].get(n) != csvs["resident"][n])
+        log(f"[label_vad] CSVs byte-equal across {', '.join(runs)}: {not differ}")
+        if differ:
+            raise AssertionError(f"label_vad CSVs differ between runs: {differ}")
+    phase_s = time.perf_counter() - t_phase
+    log(f"[label_vad] phase wall {phase_s:.1f} s")
+    results["label_vad"] = dict(runs, vad_seconds_kept=kept, seconds_in=total,
+                                phase_seconds=phase_s)
 
 
 def _segment_corpus(root: str, copies: int):
@@ -1193,7 +1364,7 @@ def main(argv) -> int:
     except ImportError as e:
         print(f"chip_smoke: run from the repository root ({e})", file=sys.stderr)
         return 2
-    phases = argv or ["kernels", "label", "train", "train_agree", "agree"]
+    phases = argv or ["kernels", "label", "label_vad", "train", "train_agree", "agree"]
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -1208,9 +1379,11 @@ def main(argv) -> int:
         log("checks " + json.dumps({"checks": checks}))
     with tempfile.TemporaryDirectory() as tmp:
         model_dir = (write_large_v2(tmp, torch)
-                     if {"label", "train"} & set(phases) else None)
+                     if {"label", "label_vad", "train"} & set(phases) else None)
         if "label" in phases:
             phase_label(torch, entries, results, model_dir)
+        if "label_vad" in phases:
+            phase_label_vad(torch, entries, results, model_dir)
         if "train" in phases:
             phase_train(torch, entries, results, model_dir)
     if "train_agree" in phases:

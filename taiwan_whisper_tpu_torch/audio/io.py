@@ -1,7 +1,8 @@
-"""Host-side audio ingest: WAV read/write, mono, resample to 16 kHz.
+"""Host-side audio ingest: WAV/FLAC read and write, mono, resample to 16 kHz.
 
-Port of taiwan_whisper_tpu/audio/io.py for the WAV path. FLAC needs the
-native codec and waits for a later slice.
+Port of taiwan_whisper_tpu/audio/io.py: WAV through the standard library,
+FLAC through the repository's C++ codec (``native/flac_codec.cpp``, bound
+by utils/native.py).
 """
 
 from __future__ import annotations
@@ -46,13 +47,27 @@ def write_wav(path: str, audio: np.ndarray, sample_rate: int = SAMPLE_RATE):
         w.writeframes(pcm.tobytes())
 
 
+def read_flac(path: str) -> Tuple[np.ndarray, int]:
+    """Read a FLAC file -> (float32 array [T] or [T, C], sample_rate)."""
+    from ..utils.native import flac_decode
+
+    return flac_decode(path)
+
+
+def write_flac(path: str, audio: np.ndarray, sample_rate: int = SAMPLE_RATE):
+    """Write float32 audio ([T] or [T, C]) as 16-bit FLAC."""
+    from ..utils.native import flac_encode
+
+    flac_encode(path, np.asarray(audio, np.float32), sample_rate)
+
+
 def read_audio(path: str) -> Tuple[np.ndarray, int]:
     ext = os.path.splitext(path)[1].lower()
     if ext == ".wav":
         return read_wav(path)
-    raise NotImplementedError(
-        f"{ext!r} input waits for the port's FLAC/native I/O (ROADMAP Queue A); "
-        "only WAV is read")
+    if ext == ".flac":
+        return read_flac(path)
+    raise ValueError(f"unsupported audio format {ext!r} (wav/flac supported)")
 
 
 def to_mono(audio: np.ndarray) -> np.ndarray:

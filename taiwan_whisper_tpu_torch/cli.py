@@ -21,7 +21,7 @@ from __future__ import annotations
 import argparse
 import json
 
-_UNPORTED = "wait(s) for a later slice of the port (ROADMAP Queue A 9)"
+_UNPORTED = "wait(s) for a later slice of the port (ROADMAP Queue A 8)"
 
 
 def _quant_arg(v: str):
@@ -43,9 +43,6 @@ def cmd_label(args):
 
     unported = [name for name, on in (
         ("--no_pooled", args.no_pooled),
-        ("--wire_mode resident", args.wire_mode == "resident"),
-        ("--pack_regions", args.pack_regions),
-        ("--group_segs", args.group_segs is not None),
         ("--assistant", args.assistant is not None),
         ("--validation_manifest", args.validation_manifest is not None),
         ("--distributed", args.distributed),
@@ -63,7 +60,10 @@ def cmd_label(args):
             vad_mode=args.vad_mode,
             quantize_kv=args.quantize_kv,
             num_beams=args.num_beams,
+            wire_mode=args.wire_mode,
             max_decode_tokens=args.max_decode_tokens,
+            pack_regions=args.pack_regions,
+            group_segs=args.group_segs,
         ),
         tokenizer_dir=args.tokenizer_dir,
         device=args.device,
@@ -208,7 +208,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--vad_mode", default="spectral",
                    choices=["spectral", "spectral-device", "spectral-host",
                             "energy", "off"],
-                   help="region-gated decode; this slice runs 'off' (whole file)")
+                   help="region-gated decode: spectral, spectral-device, "
+                        "spectral-host, energy, or off (whole file). The resident "
+                        "route scores spectral with the PyTorch scorer on --device; "
+                        "the chunk route scores spectral on the device on CUDA and "
+                        "with numpy elsewhere")
     p.add_argument("--quantize_kv", type=_quant_arg, nargs="?", const=8,
                    default=0, metavar="MODE",
                    help="cross-KV quantization: bare flag or 8 -> int8, fp8 -> "
@@ -216,9 +220,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--num_beams", type=int, default=1)
     p.add_argument("--no_pooled", action="store_true")
     p.add_argument("--wire_mode", default="auto", choices=["auto", "resident", "chunks"],
-                   help="this slice runs the staged-chunk transport")
-    p.add_argument("--group_segs", type=int, default=None)
-    p.add_argument("--pack_regions", action="store_true")
+                   help="resident: one upload per file into device group buffers "
+                        "(spectral/off VAD); chunks: staged chunk batches; auto: "
+                        "resident when eligible")
+    p.add_argument("--group_segs", type=int, default=None,
+                   help="resident path: 120 s segments per device group buffer")
+    p.add_argument("--pack_regions", action="store_true",
+                   help="resident path: pack short VAD regions into shared windows")
     p.add_argument("--max_decode_tokens", type=int, default=None,
                    help="cap sampled tokens per 30 s chunk (None = model max 448)")
     p.add_argument("--assistant", default=None)

@@ -5,8 +5,8 @@ no device work): manifest streaming, 2/5-line txt parsing, last-segment
 trim/append, <|continued|> prompt cleanup, timestamp and condition-on-prev
 sampling, prompt trimming, shift-right and -100 masking. It makes the same
 ``np.random.RandomState`` draws in the same order as the JAX package, so
-its batches are byte-identical to the JAX package's. Audio is WAV only
-(FLAC waits for the port's native I/O, ROADMAP Queue A 5).
+its batches are byte-identical to the JAX package's. Audio is WAV or FLAC
+(audio/io.py).
 """
 
 from __future__ import annotations

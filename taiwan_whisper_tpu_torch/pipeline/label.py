@@ -1,17 +1,22 @@
 """Stage 1: pseudo-labelling — the teacher transcribes long-form audio
-(port of taiwan_whisper_tpu/pipeline/label.py, pooled chunk path).
+(port of taiwan_whisper_tpu/pipeline/label.py, chunked strategy).
 
-``label_files`` mirrors the JAX package's pooled chunk scheduler
-(``_label_files_pooled`` with ``wire_mode="chunks"``): 30 s chunks of all
-files feed one queue and are decoded in full ``batch_size`` batches
-(padding rows repeat the last chunk), each batch stacked on an int16 wire
-and staged ahead on a thread while the previous one decodes; one batch is
-mel (kernel) -> encode -> greedy decode; segments scatter back through the
-stride core-region merge to per-file CSVs.
+``label_files`` dispatches as the JAX package's does. With ``wire_mode``
+"resident", or "auto" when the VAD mode allows it (spectral or off), it
+runs the device-resident driver (pipeline/label_resident.py): each file is
+uploaded once as int16 into group buffers on the device, which the VAD
+scorer and the 30 s chunk rows both read. Otherwise ("chunks", or energy /
+host-spectral VAD) it runs the pooled chunk scheduler here: 30 s chunks of
+the VAD regions of all files feed one queue and are decoded in full
+``batch_size`` batches (padding rows repeat the last chunk), each batch
+stacked on the wire (int16 by default) and staged ahead on a thread while
+the previous one decodes. A batch is mel (kernel) -> encode -> greedy
+decode; segments scatter back through the stride core-region merge to
+per-file CSVs. Spectral VAD scores on the device go through
+``spectral_regions_device_batch`` so several files share one scorer call.
 
-This slice labels with VAD off (each file is one region) plus the numpy
-energy gate. The spectral device VAD, the device-resident driver, beam
-search and speculative decoding wait for later slices.
+Beam search, sequential decoding, the per-file (unpooled) driver and
+speculative decoding wait for later slices.
 """
 
 from __future__ import annotations
@@ -39,6 +44,11 @@ from ..models.config import DtypePolicy, WhisperConfig, resolve_device
 from ..models.params import prepare_params
 from ..ops.mel_kernel import log_mel
 from ..text.tokenizer import WhisperTokenizer
+from .vad import (_VAD_CALL_SEGS, _VAD_SEG_SAMPLES, detect_speech_regions,
+                  resolve_vad_mode, spectral_regions_device_batch)
+
+# what a file that cannot be read raises: it is skipped and counted
+READ_ERRORS = (OSError, EOFError, ValueError, wave.Error)
 
 
 @dataclasses.dataclass
@@ -52,15 +62,39 @@ class LabelConfig:
     chunk_s: Optional[float] = None
     stride_s: Optional[float] = None
     energy_vad_threshold: float = 0.0  # 0 disables; else min RMS to transcribe
-    # region-gated decode: this slice supports only vad_mode="off" (or
-    # vad_regions=False), which decodes each whole file
+    # region-gated decode, on by default as in the reference: only detected
+    # speech regions reach the teacher. "spectral" also rejects music and
+    # steady noise (pipeline/vad.py; scored on the device on CUDA, with
+    # numpy elsewhere); "spectral-device" / "spectral-host" force one
+    # scorer; "energy" is the RMS-only gate; "off" decodes the whole file.
     vad_regions: bool = True
-    vad_mode: str = "off"
+    vad_mode: str = "spectral"
     quantize_kv: object = False  # 0/False off; True/8 int8; "fp8" e4m3
     num_beams: int = 1  # >1 waits for the beam-search slice
-    io_threads: int = 2  # host-side load prefetch workers
+    # pool chunks across VAD regions and files into full device batches;
+    # False (per-file chunked_decode) waits for the long-form slice
+    pooled: bool = True
+    io_threads: int = 2  # host-side load + VAD prefetch workers
+    # host -> device audio wire of the chunk path: "int16" is lossless for
+    # PCM16 sources and half the bytes; "float32" for float-native sources
+    wire_dtype: str = "int16"
+    # transport: "resident" uploads each file once into device group
+    # buffers that VAD and chunk rows read (pipeline/label_resident.py;
+    # spectral or off VAD); "chunks" stages stacked chunk batches; "auto"
+    # is resident when eligible, else chunks
+    wire_mode: str = "auto"
     stage_depth: int = 2  # batches staged ahead of the decode loop
     max_decode_tokens: Optional[int] = None  # cap sampled tokens per chunk
+    # resident path only: pack several short VAD regions of a file into one
+    # 30 s window (pack_separator_s of silence between them) and map the
+    # timestamps back piecewise. Off by default: a packed window puts
+    # disjoint speech contexts side by side.
+    pack_regions: bool = False
+    pack_separator_s: float = 0.2
+    # resident path only: 120 s segments per device group buffer (None =
+    # label_resident.CAP_SEGS); smaller groups seal, and start decoding,
+    # sooner
+    group_segs: Optional[int] = None
 
 
 def energy_vad_is_speech(audio: np.ndarray, threshold: float) -> bool:
@@ -94,21 +128,29 @@ class _ChunkTask:
 
 
 def _check_supported(cfg: LabelConfig):
-    if cfg.vad_regions and cfg.vad_mode != "off":
-        raise NotImplementedError(
-            f"vad_mode={cfg.vad_mode!r} waits for the port's device VAD "
-            "(ROADMAP Queue A); use vad_mode='off'")
     if cfg.num_beams > 1:
         raise NotImplementedError("num_beams > 1 waits for the beam-search slice")
     if cfg.strategy != "chunked":
         raise NotImplementedError(f"strategy={cfg.strategy!r} waits for a later slice")
+    if not cfg.pooled:
+        raise NotImplementedError(
+            "pooled=False (per-file chunked_decode) waits for the long-form slice "
+            "(ROADMAP Queue A)")
+    if cfg.wire_dtype not in ("int16", "float32"):
+        raise ValueError(f"wire_dtype must be int16 or float32, got {cfg.wire_dtype!r}")
 
 
-def _file_to_tasks(file_idx: int, audio: np.ndarray, chunk_s: float,
-                   stride_s: float) -> List[_ChunkTask]:
-    """Host-side prep of one file: regions (the whole file while VAD is
-    off) -> strided chunks."""
-    regions = [(0.0, len(audio) / SAMPLE_RATE)]
+def _file_to_tasks(file_idx: int, audio: np.ndarray, cfg: LabelConfig, chunk_s: float,
+                   stride_s: float, device, regions=None) -> List[_ChunkTask]:
+    """Host-side prep of one file: VAD regions -> strided chunks. Offsets
+    stay region-relative; the consumer applies ``region_start`` when it
+    scatters segments back. ``regions`` injects precomputed VAD regions
+    (the pooled driver's batched device scorer)."""
+    if regions is None:
+        if cfg.vad_regions and cfg.vad_mode != "off":
+            regions = detect_speech_regions(audio, cfg.vad_mode, device)
+        else:
+            regions = [(0.0, len(audio) / SAMPLE_RATE)]
     tasks: List[_ChunkTask] = []
     for a, b in regions:
         span = audio[int(a * SAMPLE_RATE): int(b * SAMPLE_RATE)]
@@ -120,16 +162,26 @@ def _file_to_tasks(file_idx: int, audio: np.ndarray, chunk_s: float,
     return tasks
 
 
-def decode_batch(params, wire: torch.Tensor, prefix: torch.Tensor, config: WhisperConfig,
+def decode_audio(params, audio: torch.Tensor, prefix: torch.Tensor, config: WhisperConfig,
                  rules: DecodeRules, policy: DtypePolicy, *, max_len, quantize_kv, device):
-    """One device batch: int16 wire -> fp32 audio -> log-mel -> encode ->
+    """One device batch of fp32 audio [B, N]: log-mel (kernel) -> encode ->
     greedy decode."""
-    audio = wire.to(device, non_blocking=True).float() / 32768.0
     mel = log_mel(audio, config.num_mel_bins)
     with torch.inference_mode():
         enc = M.encode(params, mel, config, policy)
     return greedy_decode(params, enc, prefix, config, rules, policy, max_len=max_len,
                          quantize_cross_kv=quantize_kv, device=device)
+
+
+def decode_batch(params, wire: torch.Tensor, prefix: torch.Tensor, config: WhisperConfig,
+                 rules: DecodeRules, policy: DtypePolicy, *, max_len, quantize_kv, device):
+    """One staged batch: int16 (or fp32) wire -> fp32 audio on the device ->
+    ``decode_audio``."""
+    audio = wire.to(device, non_blocking=True).float()
+    if wire.dtype == torch.int16:
+        audio = audio / 32768.0
+    return decode_audio(params, audio, prefix, config, rules, policy, max_len=max_len,
+                        quantize_kv=quantize_kv, device=device)
 
 
 def label_files(
@@ -144,11 +196,37 @@ def label_files(
     device=None,
     log_every: int = 10,
 ) -> dict:
-    """Transcribe each file to <output_dir>/<stem>.csv through the pooled
-    chunk scheduler; returns stats. Runs on ``device`` (cuda unless given)."""
+    """Transcribe each file to <output_dir>/<stem>.csv; returns stats. Runs
+    on ``device`` (cuda unless given). The transport follows
+    ``cfg.wire_mode`` as in the JAX package: resident when asked, or under
+    "auto" when the VAD mode allows it; a resident request with another VAD
+    mode raises."""
     dev = resolve_device(device)
     _check_supported(cfg)
     os.makedirs(output_dir, exist_ok=True)
+    resident_ok = (cfg.wire_mode in ("auto", "resident")
+                   and (not cfg.vad_regions
+                        or cfg.vad_mode in ("spectral", "spectral-device", "off")))
+    if cfg.wire_mode == "resident" or (cfg.wire_mode == "auto" and resident_ok):
+        if not resident_ok:
+            raise ValueError("wire_mode='resident' requires spectral/off VAD")
+        from .label_resident import label_files_resident
+
+        return label_files_resident(params, config, tok, audio_paths, output_dir, cfg,
+                                    policy, device=dev, log_every=log_every)
+    return _label_files_pooled(params, config, tok, audio_paths, output_dir, cfg, policy,
+                               device=dev, log_every=log_every)
+
+
+def _label_files_pooled(params, config: WhisperConfig, tok: WhisperTokenizer,
+                        audio_paths: Sequence[str], output_dir: str, cfg: LabelConfig,
+                        policy: DtypePolicy, *, device: torch.device,
+                        log_every: int) -> dict:
+    """The chunk-queue scheduler: every file's VAD-region chunks feed one
+    shared queue; the device sees only full ``batch_size`` batches;
+    segments scatter back to per-file CSVs. File loading (and host VAD)
+    run ahead on ``io_threads`` threads."""
+    dev = device
     params = prepare_params(params, policy, dev)
 
     special = tok.special
@@ -163,7 +241,7 @@ def label_files(
     states: dict = {}  # file_idx -> {segments, remaining, produced, out_csv}
     buffer: List[_ChunkTask] = []
     stats = dict(files=0, skipped=0, failed=0, audio_seconds=0.0,
-                 chunks=0, batches=0, pad_slots=0,
+                 chunks=0, batches=0, pad_slots=0, vad_s=0.0,
                  decode_s=0.0, stage_wait_s=0.0, load_wait_s=0.0, scatter_s=0.0)
     t0 = time.time()
 
@@ -176,7 +254,7 @@ def label_files(
             rate = stats["audio_seconds"] / max(time.time() - t0, 1e-6)
             print(f"[label] {stats['files']} files, {rate:.1f} audio-s/s")
 
-    # staging: a thread stacks each batch on the int16 wire (lossless for
+    # staging: a thread stacks each batch on the wire (int16: lossless for
     # PCM16 sources) into pinned memory so the upload of batch N+1 overlaps
     # the decode of batch N
     stage_pool = ThreadPoolExecutor(max_workers=1)
@@ -185,7 +263,8 @@ def label_files(
     def stack(batch: List[_ChunkTask]) -> torch.Tensor:
         pad_n = bs - len(batch)
         arr = np.stack([t.audio for t in batch] + [batch[-1].audio] * pad_n)
-        arr = np.clip(np.round(arr * 32768.0), -32768, 32767).astype(np.int16)
+        if cfg.wire_dtype == "int16":
+            arr = np.clip(np.round(arr * 32768.0), -32768, 32767).astype(np.int16)
         wire = torch.from_numpy(arr)
         return wire.pin_memory() if dev.type == "cuda" else wire
 
@@ -231,16 +310,23 @@ def label_files(
         while force and staged:
             process_oldest()
 
+    # spectral scores on the device go through one batched scorer call for
+    # several files (flush_vad); host scorers run in the loader threads
+    batched_vad = (cfg.vad_regions
+                   and resolve_vad_mode(cfg.vad_mode, dev) == "spectral-device")
+
     def load_one(item):
         idx, path = item
         try:
             audio = load_audio_16k(path)
-        except (OSError, EOFError, ValueError, NotImplementedError, wave.Error) as e:
+        except READ_ERRORS as e:
             return idx, None, 0.0, f"{e}"  # tolerate unreadable files
+        secs = len(audio) / SAMPLE_RATE
         if not energy_vad_is_speech(audio, cfg.energy_vad_threshold):
-            return idx, [], len(audio) / SAMPLE_RATE, None
-        return idx, _file_to_tasks(idx, audio, chunk_s, stride_s), \
-            len(audio) / SAMPLE_RATE, None
+            return idx, [], secs, None
+        if batched_vad:
+            return idx, audio, secs, None  # VAD later, batched
+        return idx, _file_to_tasks(idx, audio, cfg, chunk_s, stride_s, dev), secs, None
 
     todo = []
     for idx, path in enumerate(audio_paths):
@@ -262,6 +348,21 @@ def label_files(
         buffer.extend(tasks)
         stats["chunks"] += len(tasks)
         drain()
+
+    vad_pending: List = []  # (idx, audio) awaiting a batched VAD call
+    vad_pending_segs = 0
+
+    def flush_vad(force=False):
+        nonlocal vad_pending, vad_pending_segs
+        if not vad_pending or (not force and vad_pending_segs < _VAD_CALL_SEGS):
+            return
+        tv = time.perf_counter()
+        regions_list = spectral_regions_device_batch([a for _, a in vad_pending], dev)
+        stats["vad_s"] += time.perf_counter() - tv
+        for (idx, audio), regions in zip(vad_pending, regions_list):
+            ingest_tasks(idx, _file_to_tasks(idx, audio, cfg, chunk_s, stride_s, dev,
+                                             regions=regions))
+        vad_pending, vad_pending_segs = [], 0
 
     # bounded look-ahead: io_threads workers load files while the device
     # decodes; files enter the queue in submission order
@@ -289,7 +390,13 @@ def label_files(
                 stats["failed"] += 1
                 continue
             stats["audio_seconds"] += secs
-            ingest_tasks(idx, payload)
+            if batched_vad and isinstance(payload, np.ndarray):
+                vad_pending.append((idx, payload))
+                vad_pending_segs += max(-(-len(payload) // _VAD_SEG_SAMPLES), 1)
+                flush_vad()
+            else:
+                ingest_tasks(idx, payload)
+        flush_vad(force=True)
         drain(force=True)
 
     if states:

@@ -8,8 +8,11 @@ Times each stage of ``pipeline.label.decode_batch`` with the host clock
 around synchronised work (mel, encode, cross-KV precompute, prefill, the
 greedy loop), then traces a window of decode steps with torch.profiler and
 prints device time by kernel and the device's busy share of the window.
-Prints one JSON object as its last line; writes the trace under
-``chiprun_out/``.
+The VAD stage: the device spectral scorer on one call of 8 segments of
+120 s of speech-like audio (``tools/synth_audio.py``, int16 wire), ms per
+call with the copies to and from the card, and the seconds the VAD keeps
+of the seconds in. Prints one JSON object as its last line; writes the
+trace under ``chiprun_out/``.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import os
 import subprocess
 import time
 
+import numpy as np
 import torch
 
 from ..audio.mel import N_SAMPLES
@@ -29,10 +33,31 @@ from ..models import whisper as M
 from ..models.config import DtypePolicy, get_config, resolve_device
 from ..models.params import init_params, prepare_params
 from ..ops.mel_kernel import log_mel
+from ..pipeline import vad
 from ..text.tokenizer import WhisperTokenizer
+from .synth_audio import synth_lecture
 
 
 STEPS_TRACED = 8
+VAD_CALLS = 5
+
+
+def vad_stage(dev) -> dict:
+    """The device scorer on one call's worth of speech-like segments."""
+    rng = np.random.RandomState(0)
+    n = vad._VAD_SEG_SAMPLES
+    audios = [synth_lecture(rng, n / vad.SAMPLE_RATE)[:n] for _ in range(vad._VAD_CALL_SEGS)]
+    segs = np.concatenate([vad._file_segments(a) for a in audios])
+    vad._score_segments(segs, dev)  # warm-up: cuFFT plans, allocator
+    times = []
+    for _ in range(VAD_CALLS):
+        _, ms = _timed(lambda: vad._score_segments(segs, dev))
+        times.append(ms)
+    regions = vad.spectral_regions_device_batch(audios, dev)
+    kept = sum(b - a for r in regions for a, b in r)
+    return dict(vad_segments_per_call=len(segs), vad_call_ms=float(np.median(times)),
+                vad_call_ms_all=times, vad_seconds_in=len(segs) * n / vad.SAMPLE_RATE,
+                vad_seconds_kept=kept)
 
 
 def _timed(fn):
@@ -91,6 +116,7 @@ def main(argv=None):
     stages["step_ms"] = loop_ms / steps
     batch_ms = stages["mel_ms"] + stages["encode_ms"] + stages["greedy_decode_ms"]
     stages["audio_s_per_s"] = args.batch * 30.0 / (batch_ms / 1e3)
+    stages.update(vad_stage(dev))
 
     # trace a window of decode steps
     with torch.inference_mode():
@@ -120,6 +146,9 @@ def main(argv=None):
     prof.export_chrome_trace(os.path.join("chiprun_out", "decode_steps_trace.json"))
     print(card)
     print(f"stages (ms, batch {args.batch}, {steps} tokens): " + json.dumps(stages))
+    print(f"vad: {stages['vad_call_ms']:.2f} ms per call of {stages['vad_segments_per_call']} "
+          f"x 120 s segments; kept {stages['vad_seconds_kept']:.1f} s of "
+          f"{stages['vad_seconds_in']:.1f} s")
     busy_step = busy_ms / STEPS_TRACED
     print(f"decode window: {STEPS_TRACED} steps, traced wall {window_ms:.2f} ms, device "
           f"busy {busy_ms:.2f} ms; {busy_step:.3f} ms busy per step = "

@@ -8,6 +8,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from taiwan_whisper_tpu.audio.io import write_wav
 from taiwan_whisper_tpu.models.config import DtypePolicy as JaxPolicy
@@ -24,6 +25,7 @@ from taiwan_whisper_tpu_torch.models.io import save_hf_checkpoint
 from taiwan_whisper_tpu_torch.models.params import from_jax_params
 from taiwan_whisper_tpu_torch.pipeline.label import LabelConfig, label_files
 from taiwan_whisper_tpu_torch.text.tokenizer import WhisperTokenizer
+from torch_threads import one_torch_thread  # noqa: F401
 
 SR = 16000
 TINY = dict(vocab_size=MULTILINGUAL.vocab_size, d_model=64, ffn_dim=128,
@@ -87,7 +89,7 @@ def test_label_files_csvs_match_jax(tmp_path, corpus, weights):
         JaxPolicy.fp32(), log_every=0)
     stats = label_files(
         params, cfg, WhisperTokenizer.from_pretrained_dir(tok_dir), paths, port_dir,
-        LabelConfig(vad_mode="off", batch_size=8, max_decode_tokens=16),
+        LabelConfig(vad_mode="off", wire_mode="chunks", batch_size=8, max_decode_tokens=16),
         DtypePolicy.fp32(), device="cpu", log_every=0)
     assert stats["files"] == 3 and stats["chunks"] > 8  # more than one batch
     assert stats["batches"] == -(-stats["chunks"] // 8)
@@ -122,10 +124,55 @@ def test_cli_label_matches_label_files(tmp_path, corpus, weights):
     assert _read_csvs(cli_dir) == _read_csvs(lib_dir)
 
 
-@pytest.mark.parametrize("kw", [dict(vad_mode="spectral"), dict(num_beams=2),
-                                dict(strategy="sequential")])
+@pytest.mark.parametrize("kw", [dict(num_beams=2), dict(strategy="sequential"),
+                                dict(pooled=False)])
 def test_unported_label_options_raise(tmp_path, weights, kw):
     _, _, params, cfg = weights
     with pytest.raises(NotImplementedError):
         label_files(params, cfg, WhisperTokenizer(), [], str(tmp_path),
                     LabelConfig(**kw), device="cpu")
+
+
+def test_cli_label_shipped_args_matches_jax_cli(tmp_path, corpus, weights, monkeypatch):
+    """``cli label @configs/label_large_v2.args`` (b32, fp8 cross-KV, zh,
+    chunked, and so spectral VAD and the auto wire mode by default) with a
+    tiny checkpoint, FLAC input and ``--device cpu``: the port's CLI takes
+    the resident route and, both CLIs at the fp32 policy, writes the JAX
+    CLI's CSVs byte for byte (neither label CLI has a policy flag, so each
+    package's default policy is set to fp32 here)."""
+    from taiwan_whisper_tpu import cli as jax_cli
+    from taiwan_whisper_tpu.models.io import save_hf_checkpoint as jax_save
+    from taiwan_whisper_tpu.pipeline import label as jax_label
+    from taiwan_whisper_tpu_torch.pipeline import label as port_label
+    from taiwan_whisper_tpu_torch.audio.io import write_flac
+    from taiwan_whisper_tpu_torch.audio.manifest import Manifest, write_manifest
+    from taiwan_whisper_tpu_torch.tools.synth_audio import synth_lecture
+
+    jparams, jcfg, _, _ = weights
+    model_dir = str(tmp_path / "model")
+    jax_save(model_dir, jparams, jcfg)
+    audio_dir = tmp_path / "flac"
+    audio_dir.mkdir()
+    rng = np.random.RandomState(3)
+    names = []
+    for i, secs in enumerate((18.0, 26.0)):
+        names.append(f"f{i}.flac")
+        write_flac(str(audio_dir / names[-1]), synth_lecture(rng, secs))
+    manifest = str(tmp_path / "m.tsv")
+    write_manifest(manifest, Manifest(root=str(audio_dir), paths=names))
+    args_file = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                             "configs", "label_large_v2.args")
+    common = ["label", f"@{args_file}", "--manifest", manifest, "--model", model_dir,
+              "--tokenizer_dir", str(corpus / "tok")]
+    monkeypatch.setattr(jax_label.label_files, "__defaults__",
+                        (JaxLabelConfig(), JaxPolicy.fp32()))
+    monkeypatch.setitem(port_label.run_labelling.__kwdefaults__, "policy",
+                        DtypePolicy.fp32())
+    jax_stats = jax_cli.main(common + ["--output_dir", str(tmp_path / "jax")])
+    stats = port_cli.main(common + ["--output_dir", str(tmp_path / "port"), "--device", "cpu"])
+    assert "groups" in stats and "groups" in jax_stats  # the resident route
+    assert stats["files"] == jax_stats["files"] == 2 and stats["device"] == "cpu"
+    assert stats["chunks"] == jax_stats["chunks"] > 0
+    port_csvs = _read_csvs(str(tmp_path / "port"))
+    assert set(port_csvs) == {"f0.csv", "f1.csv"}
+    assert port_csvs == _read_csvs(str(tmp_path / "jax"))
