@@ -2,8 +2,9 @@
 
     python3 chip_smoke.py            # every phase, as a release check runs it
     python3 chip_smoke.py kernels    # only the named phases
-                                     # (kernels, label, label_vad, train, train_agree,
-                                     # agree; mel, layer_norm: those kernels' main cases)
+                                     # (kernels, label, label_vad, prefilter, train,
+                                     # train_agree, agree; mel, layer_norm: those
+                                     # kernels' main cases)
 
 Phases, each raising on failure:
 
@@ -16,10 +17,12 @@ Phases, each raising on failure:
 2. kernels — calls each kernel's wrapper, in every variant a driven path
    launches, and holds it against its plain PyTorch version on the same
    inputs, with the tolerance stated beside it: bf16 at the labelling
-   path's shapes (large-v2, batch 32) and the finetune path's (the
-   encoder attention's LSE and backward at batch 8), fp32 at the agree
-   phases' (base, batch 4), the log-mel kernel at 32 x 30 s and with 128
-   mels, and the LayerNorm kernel (on no path, as in the JAX package) at
+   path's shapes (large-v2, batch 32), the prefilter's (whisper-base,
+   batch 64: encoder attention at 8 heads, cross on bf16 storage, self
+   over a 448-position cache at index 447, 200 and 3) and the finetune
+   path's (the encoder attention's LSE and backward at batch 8), fp32 at
+   the agree phases' (base, batch 4), the log-mel kernel at 32 and 64 x
+   30 s and with 128 mels, and the LayerNorm kernel (on no path, as in the JAX package) at
    the encoder's LN shape and at d = 384 and 4096; fails if ptxas spilled
    in the mel or LayerNorm kernels. The attention kernels are
    also held, both directions, at S = 300, at B = 1 and on q/k/v that are
@@ -56,7 +59,23 @@ Phases, each raising on failure:
    same corpus. Each run's launch counters are checked as in label, the
    shipped run must report at least one group and the group_segs run
    more, all three must cut the same chunks and write byte-equal CSVs.
-5. train   — stage 3 at full large-v2 width from the same checkpoint:
+5. prefilter — stage 2 on the port's CLI: ``cli segment`` of 8 FLAC
+   lectures of 260 s with seeded pseudo-label CSVs (72 segments), ``cli
+   make-manifest --valid_percent 0.1``, then ``cli prefilter
+   @configs/prefilter_base_0.4.args`` (batch 64, threshold 0.4, zh) with a
+   random full-width whisper-base validator: 2 batches of the 448-token
+   budget, launch counters checked as in label. The filter run again on
+   the CPU from the card's hyps must write byte-equal files and keep
+   everything above every MER. The validator then decodes the first 64
+   segments again with torch.profiler on over two windows of 8 greedy
+   steps (positions 5-12, as ``tools/profile_label`` traces them, and
+   420-427, where the self kernel runs 4-block clusters): device time per
+   step by kernel, the device's busy share and the host's launch calls
+   per step. Last, the validator at fp32 on 4 segments over the whole
+   448-token budget (the self kernel's fp32 cache runs clusters of 2
+   blocks from position 97, 4 from 193 and 8 from 385), card vs CPU:
+   token agreement at least 0.98.
+6. train   — stage 3 at full large-v2 width from the same checkpoint:
    ``cli init-student`` (32-2), ``cli distill`` (ce 0.8, kl 1.0, T 2,
    fp32 masters, bf16 compute, frozen encoder) at batch 32, and at the
    shipped 64 when twice the batch-32 peak memory fits the card, then
@@ -66,11 +85,11 @@ Phases, each raising on failure:
    loss must fall; launch counters are checked per run (distill: mel 1
    and encoder forward 32 per step; finetune: mel 1, encoder forward 64,
    as each checkpointed layer runs twice, and backward 32 per step).
-6. train_agree — a small config (d 256, S 300: a ragged key tile) at the
+7. train_agree — a small config (d 256, S 300: a ragged key tile) at the
    fp32 policy with TF32 off, trainable encoder: three train steps on the
    card and on the CPU plain path; losses agree to 1e-4 relative and the
    updated params to 1e-5, launch counters checked.
-7. agree   — the base preset at batch 4, fp32 policy with TF32 off, greedy
+8. agree   — the base preset at batch 4, fp32 policy with TF32 off, greedy
    for 32 tokens on the card and on the CPU plain path; token agreement
    must be at least 0.98 of positions, and the launch counters, zeroed
    just before the card's run, must equal the count that run implies.
@@ -82,6 +101,7 @@ result, without a CUDA card or without the package beside it.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import re
@@ -89,6 +109,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -98,6 +119,13 @@ PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
 
 LARGE_V2_BATCH = 32
+# the prefilter phase: configs/prefilter_base_0.4.args validates at batch 64
+# with a 448-token budget; 8 lectures of 260 s cut into 72 segments (one
+# full batch and one of 8 with 56 zero-audio pad rows)
+PREFILTER_BATCH, PREFILTER_BUDGET = 64, 448
+PREFILTER_LECTURES, PREFILTER_SECONDS, PREFILTER_MIN_SEGMENTS = 8, 260.0, 65
+# (first position, steps) of each traced window of the validator's loop
+PREFILTER_TRACE_WINDOWS = ((5, 8), (420, 8))
 LABEL_FILES, LABEL_SECONDS, MAX_DECODE_TOKENS = 8, 170.0, 192
 AGREE_BATCH, AGREE_TOKENS = 4, 32
 FINETUNE_BATCH = 8
@@ -409,8 +437,10 @@ def decode_edge_cases(torch, DA, checks, g, dev):
 
 def phase_kernels(torch, entries: dict, checks: list, only=None):
     """Every kernel variant a driven path launches, held against its plain
-    version: the label path's (large-v2, batch 32, bf16, fp8 cross-KV) and
-    the agree phase's (base, batch 4, fp32 policy). ``only``: just these
+    version: the label path's (large-v2, batch 32, bf16, fp8 cross-KV), the
+    prefilter's (whisper-base, batch 64, bf16, unquantized cross-KV, a
+    448-position cache) and the agree phase's (base, batch 4, fp32 policy).
+    ``only``: just these
     groups' main cases ("mel", "layer_norm"), which call nothing but the
     public wrappers (an A/B runs them against another tree's package)."""
     import torch.nn.functional as F
@@ -488,6 +518,21 @@ def phase_kernels(torch, entries: dict, checks: list, only=None):
            time_ms(lambda: EA.attention_plain(q4, k, v4), torch, iters=3, flush=flush),
            enc_bound, None)
     del q, k, v, qt, kt, vt, q4, v4
+    # the prefilter's validator (whisper-base): bf16 [64, 1500, 8, 64], rows
+    # of 1024 bytes in the TMA maps; unit inputs, tolerance 8e-3 as above
+    PB, PH = PREFILTER_BATCH, 8
+    q, k, v = (torch.randn((PB, T, PH, D), generator=g, device=dev).to(bf16) for _ in range(3))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    key = f"encoder_attention[bf16,B={PB},H={PH}]"
+    record(key, "encoder_attention", enc_src, enc_rep,
+           EA.encoder_attention(q, k, v), EA.attention_plain(q, k, v), 8e-3,
+           time_ms(lambda: EA.encoder_attention(q, k, v), torch, flush=flush),
+           time_ms(lambda: EA.attention_plain(q, k, v), torch, iters=3, flush=flush),
+           bound_ms(4 * PB * T * PH * D * 2, 4 * PB * PH * T * T * D, "bf16"),
+           time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), torch, flush=flush))
+    device_times(key, lambda: EA.encoder_attention(q, k, v),
+                 lambda: F.scaled_dot_product_attention(qt, kt, vt), torch, checks)
+    del q, k, v, qt, kt, vt
     q, k, v = (torch.randn((AB, T, AH, D), generator=g, device=dev) for _ in range(3))
     record("encoder_attention[fp32,agree]", "encoder_attention", enc_src, enc_rep,
            EA.encoder_attention(q, k, v), EA.attention_plain(q, k, v), 1e-5,
@@ -507,9 +552,10 @@ def phase_kernels(torch, entries: dict, checks: list, only=None):
     # summation-order difference can move one across a bf16 rounding
     # boundary. Tolerance 1e-5 for fp32 q: nothing is rounded below fp32,
     # only the summation order differs. The label path's cases (bf16 q, fp8
-    # storage, 1 and 3 rows) are also timed back to back, per kernel and on
-    # the host, with a bitwise rerun.
-    def cross_cases(b, h, q_dtype, stores, tol, entry):
+    # storage, 1 and 3 rows) and the prefilter's (bf16 storage, base at
+    # batch 64) are also timed back to back, per kernel and on the host,
+    # with a bitwise rerun.
+    def cross_cases(b, h, q_dtype, stores, tol, entry, timed=("fp8",), tag=""):
         base = torch.randn((b, h, D, T), generator=g, device=dev)
         for store, (kq, vq, q_scale, v_scale) in stores(base).items():
             kq, vq = DA.time_minor_copy(kq), DA.time_minor_copy(vq)
@@ -521,7 +567,7 @@ def phase_kernels(torch, entries: dict, checks: list, only=None):
                     qh, kh, vh = qs.transpose(1, 2), kq.transpose(-1, -2), vq.transpose(-1, -2)
                     lib = time_ms(lambda: F.scaled_dot_product_attention(
                         qh, kh, vh, scale=1.0), torch, flush=flush)
-                key = f"cross_attention[{str(q_dtype)[6:]} q,{store},rows={rows}]"
+                key = f"cross_attention[{str(q_dtype)[6:]} q,{store},rows={rows}{tag}]"
                 row = record(
                     key, "cross_decode_attention", DECODE_SRC, CROSS_REP,
                     DA.cross_attention(qs, kq, vq) * v_scale,
@@ -530,7 +576,7 @@ def phase_kernels(torch, entries: dict, checks: list, only=None):
                             flush=flush),
                     time_ms(lambda: DA.cross_attention_plain(qs, kq, vq), torch, flush=flush),
                     cross_bound(qs, kq), lib)
-                if (q_dtype, store) == (bf16, "fp8"):
+                if q_dtype == bf16 and store in timed:
                     device_times(key, lambda: DA.cross_attention(qs, kq, vq), None, torch,
                                  checks, host=True)
                 if (store, rows) == entry:
@@ -547,6 +593,10 @@ def phase_kernels(torch, entries: dict, checks: list, only=None):
         1e-3, ("fp8", 1))  # fp8 with 1 row is what each label decode step runs
     cross_cases(AB, AH, f32, lambda base: {
         "fp32": (base, base * 0.5, 0.125, 1.0), **quantized(base)}, 1e-5, None)
+    # the prefilter's validator: bf16 storage (unquantized cross K/V, C = 4)
+    cross_cases(PB, PH, bf16, lambda base: {"bf16": (base.to(bf16), (base * 0.5).to(bf16),
+                                                     0.125, 1.0)},
+                1e-3, None, timed=("bf16",), tag=f",B={PB},H={PH}")
 
     # 4. self attention over the cache [B, H, 64, S] (row-padded) at the
     # last step (index S - 1): bf16 at the label path's shapes with no
@@ -554,12 +604,13 @@ def phase_kernels(torch, entries: dict, checks: list, only=None):
     # branch) and with a mixed valid_from; fp32 at the agree phase's shapes
     # with no valid_from. Tolerances 1e-3 (bf16) and 1e-5 (fp32) as for
     # cross. The label path's case is also held at index 3 and 97 (a step
-    # early and half way through the budget) and timed back to back, per
-    # kernel and on the host, with a bitwise rerun; its library yardstick
+    # early and half way through the budget); it and the prefilter's cases
+    # (bf16, no valid_from) are timed back to back, per kernel and on the
+    # host, with a bitwise rerun; their library yardstick
     # is SDPA over the same cache positions with the current token written
     # at `index` (it does not round P to bf16 before P V, so it differs from
     # the plain version by more than the tolerance: logged, not held).
-    def self_case(b, h, s, dtype, vf, tol, index=None):
+    def self_case(b, h, s, dtype, vf, tol, index=None, tag=""):
         index = s - 1 if index is None else index
         ck, cv = (DA.time_minor_copy(torch.randn((b, h, D, s), generator=g, device=dev)
                                      .to(dtype)) for _ in range(2))
@@ -567,7 +618,7 @@ def phase_kernels(torch, entries: dict, checks: list, only=None):
                         for _ in range(3))
         qs = qs * 0.125
         key = (f"self_attention[{str(dtype)[6:]},valid_from={'none' if vf is None else 'mixed'},"
-               f"index={index}]")
+               f"index={index}{tag}]")
         label_path = dtype == bf16 and vf is None
         plain = DA.self_attention_plain(qs, ck, cv, k_t, v_t, index, vf)
         sdpa = lib = None
@@ -596,6 +647,10 @@ def phase_kernels(torch, entries: dict, checks: list, only=None):
     self_case(B, H, S, bf16, torch.randint(0, 3, (B,), generator=g, device=dev,
                                            dtype=torch.int32), 1e-3)
     self_case(AB, AH, AS, f32, None, 1e-5)
+    # the prefilter's validator: a 448-position cache; index 447 splits over
+    # a 4-block cluster, 200 and 3 run one block
+    for index in (PREFILTER_BUDGET - 1, 200, 3):
+        self_case(PB, PH, PREFILTER_BUDGET, bf16, None, 1e-3, index, tag=f",B={PB},H={PH}")
     attention_backward_cases(torch, entries, checks, record, g, flush)
     for key, t in layer_norm_cases(torch, entries, checks, record, g, flush).items():
         one_kernel(key, t)
@@ -617,30 +672,32 @@ def mel_bound(b: int, n: int, m: int):
 
 
 def mel_cases(torch, entries, checks, record, g, flush):
-    """The log-mel kernel at the label path's shape (32 x 30 s, 80 mels)
-    and once with 128 mels (batch 4), on Gaussian audio. Tolerance 1e-4 on
+    """The log-mel kernel at the label path's shape (32 x 30 s, 80 mels),
+    once with 128 mels (batch 4) and at the prefilter's batch of 64, on
+    Gaussian audio. Tolerance 1e-4 on
     the normalised log-mel: fp32 throughout; the FFT sums in another order
     than the plain version's DFT products and takes log10 through the
-    hardware's log2 (2.7e-5 apart on the H100). The label case is also timed back to
-    back, per kernel and on the host, with a bitwise rerun; returns those
-    times."""
+    hardware's log2 (2.7e-5 apart on the H100). The 80-mel cases are also
+    timed back to back, per kernel and on the host, with a bitwise rerun;
+    returns the label case's times."""
     from taiwan_whisper_tpu_torch.audio import mel as A
     from taiwan_whisper_tpu_torch.ops import mel_kernel as MK
 
     dev = flush.device
     src, rep = "taiwan_whisper_tpu_torch/csrc/mel.cu", "taiwan_whisper_tpu/ops/mel_kernel.py:60"
-    for b, m in ((LARGE_V2_BATCH, 80), (AGREE_BATCH, 128)):
+    for b, m in ((LARGE_V2_BATCH, 80), (AGREE_BATCH, 128), (PREFILTER_BATCH, 80)):
         audio = torch.randn((b, A.N_SAMPLES), generator=g, device=dev) * 0.1
-        key = "mel" if m == 80 else f"mel[{m} mels]"
+        key = {LARGE_V2_BATCH: "mel", AGREE_BATCH: f"mel[{m} mels]"}.get(b, f"mel[b{b}]")
         row = record(
             key, "log_mel", src, rep, MK.log_mel(audio, m), A.log_mel(audio, m), 1e-4,
             time_ms(lambda: MK.log10_mel_spectrum(audio, m), torch, flush=flush),
             time_ms(lambda: A.log10_mel_spectrum(audio, m), torch, flush=flush),
             mel_bound(b, A.N_SAMPLES, m), None)
         if m == 80:
-            entries["mel"] = row
-            times = device_times(key, lambda: MK.log10_mel_spectrum(audio), None, torch,
-                                 checks, host=True)
+            t = device_times(key, lambda: MK.log10_mel_spectrum(audio), None, torch, checks,
+                             host=True)
+        if b == LARGE_V2_BATCH:
+            entries["mel"], times = row, t
         del audio
     return times
 
@@ -1014,14 +1071,15 @@ def vad_agree(torch, results: dict, audio_paths):
     return kept
 
 
+def _read(path: str) -> bytes:
+    with open(path, "rb") as f:
+        return f.read()
+
+
 def _read_csvs(out_dir: str) -> dict:
     """The bytes of each CSV in ``out_dir``, by file name."""
-    out = {}
-    for n in sorted(os.listdir(out_dir)):
-        if n.endswith(".csv"):
-            with open(os.path.join(out_dir, n), "rb") as f:
-                out[n] = f.read()
-    return out
+    return {n: _read(os.path.join(out_dir, n)) for n in sorted(os.listdir(out_dir))
+            if n.endswith(".csv")}
 
 
 def phase_label_vad(torch, entries: dict, results: dict, model_dir: str):
@@ -1112,6 +1170,257 @@ def phase_label_vad(torch, entries: dict, results: dict, model_dir: str):
                                 phase_seconds=phase_s)
 
 
+PREFILTER_WORDS = ["今天", "我們", "來", "討論", "語音", "辨識", "模型", "的", "訓練", "資料",
+                   "hello", "world", "Whisper", "GPU", "code-switching", "，", "。"]
+
+
+def _pseudo_label_csvs(trans_dir: str, names, seconds: float):
+    """A label CSV per lecture: utterances of 2-12 s with gaps of 0-1 s
+    and zh/en text, seeded per file."""
+    import csv
+
+    for i, name in enumerate(names):
+        rng = np.random.RandomState(100 + i)
+        t, rows = float(rng.uniform(0, 2)), []
+        while True:
+            end = t + float(rng.uniform(2, 12))
+            if end > seconds:
+                break
+            rows.append((f"{t:.3f}", f"{end:.3f}",
+                         "".join(rng.choice(PREFILTER_WORDS, rng.randint(2, 12)))))
+            t = end + float(rng.uniform(0, 1))
+        with open(os.path.join(trans_dir, os.path.splitext(name)[0] + ".csv"), "w",
+                  newline="", encoding="utf-8") as f:
+            w = csv.writer(f)
+            w.writerow(["start", "end", "text"])
+            w.writerows(rows)
+
+
+def write_base(tmp: str, torch) -> str:
+    """Random bf16 whisper-base weights from seed 0 as an HF checkpoint dir:
+    the validator of configs/prefilter_base_0.4.args at full width."""
+    from taiwan_whisper_tpu_torch import get_config
+    from taiwan_whisper_tpu_torch.models.io import save_hf_checkpoint
+    from taiwan_whisper_tpu_torch.models.params import init_params
+
+    model_dir = os.path.join(tmp, "whisper-base")
+    save_hf_checkpoint(model_dir, init_params(get_config("base"), seed=0, device="cuda",
+                                              dtype=torch.bfloat16), get_config("base"))
+    return model_dir
+
+
+def phase_prefilter(torch, entries: dict, results: dict):
+    """Stage 2 on the port's CLI: ``cli segment`` of 8 FLAC lectures with
+    seeded pseudo-label CSVs into 72 segments, ``cli make-manifest
+    --valid_percent 0.1`` over them, then ``cli prefilter
+    @configs/prefilter_base_0.4.args`` (batch 64, threshold 0.4, zh) with a
+    random full-width whisper-base validator on the segment manifest: two
+    batches (the second with 56 zero-audio pad rows), each running the
+    448-token budget (random weights never emit eot), launch counters zeroed
+    just before and checked just after. Then ``filter_manifest`` on the CPU
+    from the card's ``idx_hyp.0.txt`` must write the card run's
+    ``hallucination_result.csv`` and cleaned TSV byte for byte, and keep
+    every segment at a threshold above every MER. The first batch is then
+    decoded again with ``PREFILTER_TRACE_WINDOWS`` traced
+    (``trace_decode_steps``). Last, the validator at the fp32 policy on 4
+    segments over the whole budget, card against CPU, must agree on at
+    least 0.98 of the token positions."""
+    from taiwan_whisper_tpu_torch import DtypePolicy, cli, get_config
+    from taiwan_whisper_tpu_torch.audio.manifest import read_manifest
+    from taiwan_whisper_tpu_torch.models.io import load_model
+    from taiwan_whisper_tpu_torch.pipeline import prefilter as PF
+    from taiwan_whisper_tpu_torch.text.tokenizer import WhisperTokenizer
+    from taiwan_whisper_tpu_torch.tools.synth_audio import write_lecture_flacs
+
+    t_phase = time.perf_counter()
+    # what earlier phases leave in the process, which the host-bound loop shares
+    process = dict(threads=threading.active_count(), gc_objects=len(gc.get_objects()))
+    log(f"[prefilter] process at the phase's start: {process['threads']} Python threads, "
+        f"{process['gc_objects']} GC-tracked objects")
+    cfg = get_config("base")
+    args_file = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
+                             "prefilter_base_0.4.args")
+    with tempfile.TemporaryDirectory() as tmp:
+        dirs = {k: os.path.join(tmp, k) for k in ("audio", "trans", "segments", "manifests",
+                                                  "tok", "card", "cpu", "cpu_keep_all")}
+        for k in ("audio", "trans", "tok"):
+            os.makedirs(dirs[k])
+        model_dir = write_base(tmp, torch)
+        _byte_vocab(dirs["tok"])
+        names = write_lecture_flacs(dirs["audio"], PREFILTER_LECTURES, PREFILTER_SECONDS, seed=0)
+        _pseudo_label_csvs(dirs["trans"], names, PREFILTER_SECONDS)
+        cli.main(["segment", "--trans_dir", dirs["trans"], "--audio_dir", dirs["audio"],
+                  "--output_dir", dirs["segments"]])
+        seg_manifest = os.path.join(dirs["segments"], "train.tsv")
+        segs = read_manifest(seg_manifest)
+        cli.main(["make-manifest", "--root", dirs["segments"], "--out", dirs["manifests"],
+                  "--valid_percent", "0.1"])
+        split = {k: read_manifest(os.path.join(dirs["manifests"], f"{k}.tsv")).paths
+                 for k in ("train", "valid")}
+        n = len(segs)
+        # segment audio seconds from the names: <stem>_<start>-<end>.flac
+        audio_s = sum(int(e) - int(s) for s, e in (
+            re.search(r"_(\d+)-(\d+)\.flac$", p).groups() for p in segs.paths)) / 16000
+        log(f"[prefilter] cli segment: {n} segments ({audio_s:.1f} s) from "
+            f"{PREFILTER_LECTURES} lectures; make-manifest: train {len(split['train'])}, "
+            f"valid {len(split['valid'])}")
+        if n < PREFILTER_MIN_SEGMENTS or not split["valid"] or \
+                sorted(split["train"] + split["valid"]) != sorted(segs.paths):
+            raise AssertionError(f"segment / make-manifest: {n} segments, split {split}")
+
+        zero_counters()
+        t0 = time.perf_counter()
+        stats = cli.main(["prefilter", f"@{args_file}", "--manifest", seg_manifest,
+                          "--validator", model_dir, "--output_dir", dirs["card"],
+                          "--tokenizer_dir", dirs["tok"]])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counters()
+        batches = -(-n // PREFILTER_BATCH)
+        steps = PREFILTER_BUDGET - 3
+        expected = {"mel": batches, "encoder_attention": batches * cfg.encoder_layers,
+                    "encoder_attention_bwd": 0,
+                    "cross_decode_attention": batches * cfg.decoder_layers * (1 + steps),
+                    "self_decode_attention": batches * cfg.decoder_layers * steps,
+                    "layer_norm": 0}
+        step_ms = stats["decode_s"] / (stats["batches"] * stats["steps"]) * 1e3
+        batch_step_ms = [t / stats["steps"] * 1e3 for t in stats["batch_decode_s"]]
+        dropped = stats["hallucinated"] / max(stats["decisions"], 1)
+        log(f"[prefilter] cli prefilter: {n} segments, {stats['batches']} batches of "
+            f"{PREFILTER_BATCH} ({stats['pad_rows']} pad rows), {stats['steps']} steps: "
+            f"{n / stats['wall_s']:.3f} segments/s, {audio_s / stats['wall_s']:.2f} audio-s/s "
+            f"(validator wall {stats['wall_s']:.2f} s, decode {stats['decode_s']:.2f} s = "
+            f"{' + '.join(f'{t:.2f}' for t in stats['batch_decode_s'])} by batch, load "
+            f"wait {stats['load_wait_s']:.3f} s, filter {stats['filter_s']:.3f} s, cli wall "
+            f"incl. checkpoint load {wall:.2f} s); {step_ms:.3f} ms per step ("
+            f"{' + '.join(f'{t:.3f}' for t in batch_step_ms)} by batch); dropped "
+            f"{stats['hallucinated']} of {stats['decisions']} ({dropped:.3f})")
+        log(f"[prefilter] launches {json.dumps(launches)} expected {json.dumps(expected)}")
+        if stats["batches"] != batches or stats["steps"] != steps:
+            raise AssertionError(f"prefilter run: {stats}")
+        if launches != expected:
+            raise AssertionError(f"prefilter launch counts {launches} != expected {expected}")
+        add_launches(entries, results, "prefilter", launches)
+
+        # the filter again on the CPU from the card's hyps
+        hyps = PF.read_hyps_tsv([os.path.join(dirs["card"], "idx_hyp.0.txt")])
+        _, decisions = PF.filter_manifest(segs, hyps, PF.PrefilterConfig(threshold=0.4),
+                                          dirs["cpu"])
+        differ = [f for f in ("hallucination_result.csv",
+                              "train_non-hallucinated-threshold0.4.tsv")
+                  if _read(os.path.join(dirs["card"], f)) != _read(os.path.join(dirs["cpu"], f))]
+        top = max(d.mer for d in decisions if d.mer is not None)
+        keep_all, _ = PF.filter_manifest(segs, hyps, PF.PrefilterConfig(threshold=top + 1.0),
+                                         dirs["cpu_keep_all"])
+        log(f"[prefilter] CPU re-filter of the card's hyps ({len(hyps)} of {n}): files "
+            f"byte-equal: {not differ}; at threshold {top + 1.0:.4f} (above every MER) kept "
+            f"{len(keep_all)} of {len(decisions)}")
+        if differ or len(hyps) != n or len(keep_all) != len(decisions):
+            raise AssertionError(f"CPU re-filter: files differ {differ}, {len(hyps)} hyps of "
+                                 f"{n}, kept {len(keep_all)} of {len(decisions)} at "
+                                 f"threshold {top + 1.0}")
+
+        # where a step's time goes: the validator on the CLI's checkpoint,
+        # tokenizer and first batch, two windows of its loop traced
+        params, vcfg = load_model(model_dir)
+        tok = WhisperTokenizer.from_pretrained_dir(dirs["tok"])
+        windows = trace_decode_steps(torch, lambda: PF.validator_decode(
+            params, vcfg, tok, segs.absolute_paths()[:PREFILTER_BATCH],
+            PF.PrefilterConfig(batch_size=PREFILTER_BATCH, max_decode_len=PREFILTER_BUDGET),
+            device="cuda"), PREFILTER_TRACE_WINDOWS)
+        for w in windows:
+            log(f"[prefilter] traced positions {w['first']}-{w['first'] + w['steps'] - 1}: "
+                f"{w['traced_ms_per_step']:.3f} ms per step under the profiler, device busy "
+                f"{w['busy_ms_per_step']:.3f} ms per step ("
+                f"{100 * w['busy_ms_per_step'] / batch_step_ms[-1]:.1f}% of the CLI's last "
+                f"batch's step), {w['launch_calls_per_step']:.1f} launch calls per step")
+            for k in w["kernels"][:12]:
+                log(f"    {k['ms_per_step']:8.4f} ms/step {k['calls_per_step']:6.1f}/step  "
+                    f"{k['name'][:90]}")
+
+        # card vs CPU at the fp32 policy, 4 segments, the whole budget
+        agree_cfg = PF.PrefilterConfig(batch_size=AGREE_BATCH, max_decode_len=PREFILTER_BUDGET)
+        paths = segs.absolute_paths()[:AGREE_BATCH]
+        rows = {dev: np.stack([r for _, r, _ in PF.validator_decode(
+            params, vcfg, tok, paths, agree_cfg, DtypePolicy.fp32(), device=dev)])
+            for dev in ("cuda", "cpu")}
+        agreement = float((rows["cuda"] == rows["cpu"]).mean())
+        log(f"[prefilter] validator card vs CPU at fp32 ({AGREE_BATCH} segments, "
+            f"{PREFILTER_BUDGET - 3} tokens): token agreement {agreement:.4f}")
+        if agreement < 0.98:
+            raise AssertionError(f"validator card-vs-CPU token agreement {agreement:.4f} < 0.98")
+    phase_s = time.perf_counter() - t_phase
+    log(f"[prefilter] phase wall {phase_s:.1f} s")
+    results["prefilter"] = dict(
+        segments=n, segment_audio_s=audio_s, batches=stats["batches"],
+        pad_rows=stats["pad_rows"], steps=stats["steps"],
+        segments_per_s=n / stats["wall_s"], audio_s_per_s=audio_s / stats["wall_s"],
+        validator_wall_s=stats["wall_s"], decode_s=stats["decode_s"],
+        batch_decode_s=stats["batch_decode_s"], step_ms=step_ms,
+        filter_s=stats["filter_s"], cli_wall_s=wall, dropped=stats["hallucinated"],
+        dropped_share=dropped, refilter_equal=not differ, agreement=agreement,
+        batch_step_ms=batch_step_ms, trace_windows=windows, process=process,
+        phase_seconds=phase_s)
+
+
+def trace_decode_steps(torch, run, windows) -> list:
+    """``run()`` with torch.profiler on over each (first position, steps)
+    window of the greedy loop it drives: ``models.whisper.decode_step`` is
+    wrapped for the call, so that the profiler starts (after a sync) as the
+    step at ``first`` is issued and stops (after a sync) as the step at
+    ``first + steps`` is, and a window holds that many whole loop
+    iterations: the decode step, then the rules and argmax of the next
+    token. Each window is traced once; the traces are read after ``run()``
+    returns. Returns, per window, the device ms per step by kernel, its sum
+    (busy), the traced wall per step and the host's kernel-launch calls per
+    step; writes each trace under chiprun_out/."""
+    from taiwan_whisper_tpu_torch.models import whisper as M
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    orig, live, done = M.decode_step, {}, {}
+
+    def step(params, cross_kv, cache, token, index, *args, **kw):
+        for first, n in windows:
+            if index == first + n and first in live:
+                torch.cuda.synchronize()
+                prof, t0 = live.pop(first)
+                done[first] = (prof, (time.perf_counter() - t0) * 1e3)
+                prof.stop()
+            if index == first and first not in live and first not in done:
+                torch.cuda.synchronize()
+                prof = torch.profiler.profile(activities=acts)
+                prof.start()
+                live[first] = (prof, time.perf_counter())
+        return orig(params, cross_kv, cache, token, index, *args, **kw)
+
+    with torch.profiler.profile(activities=acts):  # warm-up: the first start sets up CUPTI
+        torch.cuda.synchronize()
+    M.decode_step = step
+    try:
+        run()
+    finally:
+        M.decode_step = orig
+    if live or len(done) != len(windows):
+        raise AssertionError(f"traced windows {sorted(done)} of {windows}")
+    os.makedirs("chiprun_out", exist_ok=True)
+    out = []
+    for first, n in windows:
+        prof, wall = done[first]
+        avg = prof.key_averages()
+        kernels = sorted(((e.self_device_time_total / 1e3 / n, e.count / n, e.key)
+                          for e in avg if e.device_type == torch.autograd.DeviceType.CUDA
+                          and e.self_device_time_total > 0), reverse=True)
+        launch_calls = sum(e.count for e in avg if e.device_type == torch.autograd.DeviceType.CPU
+                           and e.key.startswith(("cudaLaunch", "cuLaunch")))
+        prof.export_chrome_trace(os.path.join("chiprun_out", f"prefilter_steps_{first}.json"))
+        out.append(dict(first=first, steps=n, traced_ms_per_step=wall / n,
+                        busy_ms_per_step=sum(k[0] for k in kernels),
+                        launch_calls_per_step=launch_calls / n,
+                        kernels=[dict(name=k[:100], ms_per_step=ms, calls_per_step=c)
+                                 for ms, c, k in kernels]))
+    return out
+
+
 def _segment_corpus(root: str, copies: int):
     """One synthetic 30 s WAV segment and its 2-line transcript (zh/en text
     with no timestamps and no prompt, so no random draw changes its labels)
@@ -1119,7 +1428,6 @@ def _segment_corpus(root: str, copies: int):
     same batch. Returns (manifest path, tokenizer dir)."""
     from taiwan_whisper_tpu_torch.audio.io import write_wav
     from taiwan_whisper_tpu_torch.audio.manifest import Manifest, write_manifest
-    from taiwan_whisper_tpu_torch.text.tokenizer import bytes_to_unicode
 
     seg_dir, tok_dir = os.path.join(root, "segments"), os.path.join(root, "tok")
     os.makedirs(seg_dir)
@@ -1134,11 +1442,19 @@ def _segment_corpus(root: str, copies: int):
                 "中英混合的句子<|endoftext|>\n\n")
     manifest = os.path.join(root, "train.tsv")
     write_manifest(manifest, Manifest(root=seg_dir, paths=["seg.wav"] * copies))
+    _byte_vocab(tok_dir)
+    return manifest, tok_dir
+
+
+def _byte_vocab(tok_dir: str):
+    """A byte-level vocab (ids 0-255, no merges) in ``tok_dir``: text
+    tokens decode to real bytes."""
+    from taiwan_whisper_tpu_torch.text.tokenizer import bytes_to_unicode
+
     with open(os.path.join(tok_dir, "vocab.json"), "w", encoding="utf-8") as f:
         json.dump({ch: i for i, ch in enumerate(bytes_to_unicode().values())}, f)
     with open(os.path.join(tok_dir, "merges.txt"), "w", encoding="utf-8") as f:
         f.write("#version: 0.2\n")
-    return manifest, tok_dir
 
 
 def _train_run(torch, entries, results, name, argv, out_dir, steps, batch, expected):
@@ -1364,7 +1680,8 @@ def main(argv) -> int:
     except ImportError as e:
         print(f"chip_smoke: run from the repository root ({e})", file=sys.stderr)
         return 2
-    phases = argv or ["kernels", "label", "label_vad", "train", "train_agree", "agree"]
+    phases = argv or ["kernels", "label", "label_vad", "prefilter", "train", "train_agree",
+                      "agree"]
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -1384,6 +1701,8 @@ def main(argv) -> int:
             phase_label(torch, entries, results, model_dir)
         if "label_vad" in phases:
             phase_label_vad(torch, entries, results, model_dir)
+        if "prefilter" in phases:
+            phase_prefilter(torch, entries, results)
         if "train" in phases:
             phase_train(torch, entries, results, model_dir)
     if "train_agree" in phases:

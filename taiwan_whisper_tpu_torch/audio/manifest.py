@@ -5,14 +5,16 @@
 * per-segment transcript txt beside each audio file, in either of two
   schemas: 2 lines (transcript / prev-transcript, what the segmenter
   writes) or 5 lines (transcript / blank / end-segment transcript / blank /
-  prev). ``read_segment_txt`` reads both into one ``SegmentText``.
+  prev). ``read_segment_txt`` reads both into one ``SegmentText``;
+  ``write_segment_txt`` writes the 2-line schema.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import List, Optional
+import random
+from typing import List, Optional, Tuple
 
 
 @dataclasses.dataclass
@@ -64,6 +66,23 @@ def write_manifest(path: str, manifest: Manifest):
                 print(p, file=f)
 
 
+def split_valid(manifest: Manifest, valid_percent: float,
+                seed: int = 42) -> Tuple[Manifest, Manifest]:
+    """Random train/valid split: each path goes to valid when one draw of
+    ``random.Random(seed)`` (one per path, in order) is below
+    ``valid_percent``."""
+    assert 0.0 <= valid_percent <= 0.5
+    rng = random.Random(seed)
+    idx = list(range(len(manifest.paths)))
+    valid_ids = {i for i in idx if rng.random() < valid_percent}
+
+    def pick(ids):
+        return Manifest(root=manifest.root, paths=[manifest.paths[i] for i in ids],
+                        frames=[manifest.frames[i] for i in ids] if manifest.frames else None)
+
+    return pick([i for i in idx if i not in valid_ids]), pick(sorted(valid_ids))
+
+
 @dataclasses.dataclass
 class SegmentText:
     """One 30 s segment's transcript record.
@@ -90,3 +109,10 @@ def read_segment_txt(path: str) -> SegmentText:
                            prev_transcript=lines[4].strip())
     return SegmentText(transcript=lines[0].strip() if lines else "",
                        prev_transcript=lines[1].strip() if len(lines) > 1 else "")
+
+
+def write_segment_txt(path: str, seg: SegmentText):
+    """Write the 2-line schema: transcript, then prev-transcript."""
+    with open(path, "w", encoding="utf-8") as f:
+        f.write(seg.transcript + "\n")
+        f.write(seg.prev_transcript + "\n")

@@ -1,7 +1,14 @@
 """Command line of the PyTorch port.
 
     python -m taiwan_whisper_tpu_torch.cli label --manifest ... --model ... \\
+        --output_dir ... [--validation_manifest ...] [--device cuda|cpu]
+    python -m taiwan_whisper_tpu_torch.cli segment --trans_dir ... --audio_dir ... \\
+        --output_dir ...
+    python -m taiwan_whisper_tpu_torch.cli make-manifest --root ... --out ...
+    python -m taiwan_whisper_tpu_torch.cli prefilter --manifest ... --validator ... \\
         --output_dir ... [--device cuda|cpu]
+    python -m taiwan_whisper_tpu_torch.cli collect-hallucinations --original_tsv ... \\
+        --cleaned_tsv ... --hyp_tsv ... --output_dir ...
     python -m taiwan_whisper_tpu_torch.cli init-student --teacher ... --out ...
     python -m taiwan_whisper_tpu_torch.cli distill --manifest ... --teacher ... \\
         --output_dir ... [--device cuda|cpu]
@@ -9,19 +16,21 @@
         --output_dir ... [--freeze_encoder] [--device cuda|cpu]
 
 Each subcommand takes the JAX CLI's flags and defaults
-(taiwan_whisper_tpu/cli.py) plus ``--device``; ``distill`` and ``finetune``
-also take ``--compute_dtype`` (bf16, the JAX CLI's policy, or fp32) and
-``--logging_steps``. Options this slice does not run yet raise
-NotImplementedError naming their ROADMAP item. The other subcommands wait
-for later slices.
+(taiwan_whisper_tpu/cli.py); those that run a model also take
+``--device``, and ``distill`` and ``finetune`` ``--compute_dtype`` (bf16,
+the JAX CLI's policy, or fp32) and ``--logging_steps``. Options this slice
+does not run yet raise NotImplementedError naming their ROADMAP item.
+``transcribe``, ``evaluate`` and ``sweep`` wait for later slices.
 """
 
 from __future__ import annotations
 
 import argparse
+import glob
 import json
+import os
 
-_UNPORTED = "wait(s) for a later slice of the port (ROADMAP Queue A 8)"
+_UNPORTED = "wait(s) for a later slice of the port (ROADMAP Queue A 6)"
 
 
 def _quant_arg(v: str):
@@ -44,7 +53,6 @@ def cmd_label(args):
     unported = [name for name, on in (
         ("--no_pooled", args.no_pooled),
         ("--assistant", args.assistant is not None),
-        ("--validation_manifest", args.validation_manifest is not None),
         ("--distributed", args.distributed),
     ) if on]
     if unported:
@@ -66,10 +74,71 @@ def cmd_label(args):
             group_segs=args.group_segs,
         ),
         tokenizer_dir=args.tokenizer_dir,
+        validation_manifest=args.validation_manifest,
         device=args.device,
     )
     print(json.dumps(stats))
     return stats
+
+
+def cmd_segment(args):
+    from .audio.io import load_audio_16k
+    from .audio.manifest import Manifest, write_manifest
+    from .pipeline.segment import read_pseudo_label_csv, segment_audio_file
+
+    csvs = {os.path.splitext(os.path.basename(p))[0]: p
+            for p in glob.glob(os.path.join(args.trans_dir, "*.csv"))}
+    rel_paths = []
+    for audio_path in sorted(glob.glob(os.path.join(args.audio_dir, f"*.{args.ext}"))):
+        stem = os.path.splitext(os.path.basename(audio_path))[0]
+        if stem not in csvs:
+            print(f"[segment] no transcription for {stem}")
+            continue
+        rel_paths.extend(segment_audio_file(load_audio_16k(audio_path),
+                                            read_pseudo_label_csv(csvs[stem]),
+                                            args.output_dir, stem, audio_format=args.ext))
+    write_manifest(os.path.join(args.output_dir, "train.tsv"),
+                   Manifest(root=os.path.abspath(args.output_dir), paths=rel_paths))
+    print(f"[segment] wrote {len(rel_paths)} segments")
+
+
+def cmd_make_manifest(args):
+    from .audio.manifest import Manifest, split_valid, write_manifest
+
+    paths = sorted(os.path.relpath(p, args.root)
+                   for p in glob.glob(os.path.join(args.root, "**", f"*.{args.ext}"),
+                                      recursive=True))
+    m = Manifest(root=os.path.abspath(args.root), paths=paths)
+    if args.valid_percent > 0:
+        train, valid = split_valid(m, args.valid_percent, args.seed)
+        write_manifest(os.path.join(args.out, "train.tsv"), train)
+        write_manifest(os.path.join(args.out, "valid.tsv"), valid)
+        print(f"[manifest] train={len(train)} valid={len(valid)}")
+    else:
+        write_manifest(os.path.join(args.out, "train.tsv"), m)
+        print(f"[manifest] train={len(m)}")
+
+
+def cmd_prefilter(args):
+    """Returns the run's counts and times (``run_prefilter``'s stats)."""
+    from .pipeline.prefilter import PrefilterConfig, run_prefilter
+
+    if args.distributed:
+        raise NotImplementedError(f"--distributed {_UNPORTED}")
+    stats: dict = {}
+    run_prefilter(args.manifest, args.validator, args.output_dir,
+                  PrefilterConfig(language=args.language, batch_size=args.batch_size,
+                                  threshold=args.threshold, mix_detection=args.mix_detection),
+                  tokenizer_dir=args.tokenizer_dir, device=args.device, stats=stats)
+    return stats
+
+
+def cmd_collect_hallucinations(args):
+    from .pipeline.audit import collect_hallucinations
+
+    collect_hallucinations(args.original_tsv, args.cleaned_tsv, args.hyp_tsv, args.output_dir,
+                           num_samples=args.num_samples, seed=args.seed,
+                           filter_csv=args.filter_csv, copy_audio=not args.no_audio)
 
 
 def _policy(name: str):
@@ -180,13 +249,17 @@ def cmd_init_student(args):
     print(f"[init-student] wrote {args.out}")
 
 
-def _add_train_common(p: argparse.ArgumentParser):
+def _add_model_common(p: argparse.ArgumentParser):
     p.add_argument("--tokenizer_dir", default=None,
                    help="dir with vocab.json/merges.txt (optional)")
     p.add_argument("--distributed", action="store_true")
     p.add_argument("--device", default=None,
                    help="torch device to run on (default cuda; 'cpu' runs the "
                         "plain PyTorch path)")
+
+
+def _add_train_common(p: argparse.ArgumentParser):
+    _add_model_common(p)
     p.add_argument("--compute_dtype", default="bf16", choices=["bf16", "fp32"],
                    help="compute dtype over the fp32 master weights")
     p.add_argument("--logging_steps", type=int, default=25)
@@ -231,14 +304,52 @@ def build_parser() -> argparse.ArgumentParser:
                    help="cap sampled tokens per 30 s chunk (None = model max 448)")
     p.add_argument("--assistant", default=None)
     p.add_argument("--num_draft_tokens", type=int, default=5)
-    p.add_argument("--validation_manifest", default=None)
-    p.add_argument("--tokenizer_dir", default=None,
-                   help="dir with vocab.json/merges.txt (optional)")
-    p.add_argument("--distributed", action="store_true")
-    p.add_argument("--device", default=None,
-                   help="torch device to run on (default cuda; 'cpu' runs the "
-                        "plain PyTorch path)")
+    p.add_argument("--validation_manifest", default=None,
+                   help="labelled split (audio + transcript txts) to label too and score "
+                        "the pseudo-labels against: MER, EN-WER, ZH-CER in the stats")
+    _add_model_common(p)
     p.set_defaults(fn=cmd_label)
+
+    p = sub.add_parser("segment", help="stage 2a: 30s re-segmentation")
+    p.add_argument("--trans_dir", required=True)
+    p.add_argument("--audio_dir", required=True)
+    p.add_argument("--output_dir", required=True)
+    p.add_argument("--ext", default="flac")
+    p.set_defaults(fn=cmd_segment)
+
+    p = sub.add_parser("prefilter", help="stage 2b: validator + MER filter")
+    p.add_argument("--manifest", required=True)
+    p.add_argument("--validator", required=True)
+    p.add_argument("--output_dir", required=True)
+    p.add_argument("--language", default="zh")
+    p.add_argument("--batch_size", type=int, default=16)
+    p.add_argument("--threshold", type=float, default=0.4)
+    p.add_argument("--mix_detection", action="store_true")
+    _add_model_common(p)
+    p.set_defaults(fn=cmd_prefilter)
+
+    p = sub.add_parser("collect-hallucinations",
+                       help="sample N prefilter-dropped segments for human audit")
+    p.add_argument("--original_tsv", required=True, help="manifest BEFORE the prefilter")
+    p.add_argument("--cleaned_tsv", required=True,
+                   help="non-hallucinated manifest written by `prefilter`")
+    p.add_argument("--hyp_tsv", nargs="+", required=True,
+                   help="validator idx\\thyp file(s), per-rank shards ok")
+    p.add_argument("--output_dir", required=True)
+    p.add_argument("--num_samples", type=int, default=1000)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--filter_csv", default=None,
+                   help="hallucination_result.csv for per-row MER + reason")
+    p.add_argument("--no_audio", action="store_true", help="skip copying audio files")
+    p.set_defaults(fn=cmd_collect_hallucinations)
+
+    p = sub.add_parser("make-manifest", help="build fairseq-style TSVs")
+    p.add_argument("--root", required=True)
+    p.add_argument("--out", required=True)
+    p.add_argument("--ext", default="flac")
+    p.add_argument("--valid_percent", type=float, default=0.0)
+    p.add_argument("--seed", type=int, default=42)
+    p.set_defaults(fn=cmd_make_manifest)
 
     p = sub.add_parser("distill", help="stage 3: knowledge distillation")
     p.add_argument("--manifest", required=True)

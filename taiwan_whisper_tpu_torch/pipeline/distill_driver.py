@@ -11,7 +11,7 @@ checkpointing, and the HF export of the student at every save.
 Weights are fp32 masters on the device whatever the checkpoint stores;
 compute runs in the policy's dtype. Only the teacher's decoder goes to the
 device (the student's encoder serves both), and a CE-only run loads no
-teacher. Not ported yet (raise NotImplementedError, ROADMAP Queue A 8):
+teacher. Not ported yet (raise NotImplementedError, ROADMAP Queue A 6):
 ``model_parallel > 1``, wandb, generation eval.
 """
 
@@ -66,7 +66,7 @@ def _check_supported(run_cfg: DistillRunConfig):
     ) if on]
     if unported:
         raise NotImplementedError(
-            f"{', '.join(unported)} wait(s) for a later slice of the port (ROADMAP Queue A 8)")
+            f"{', '.join(unported)} wait(s) for a later slice of the port (ROADMAP Queue A 6)")
 
 
 def _masters(params, device):

@@ -15,8 +15,10 @@ decode; segments scatter back through the stride core-region merge to
 per-file CSVs. Spectral VAD scores on the device go through
 ``spectral_regions_device_batch`` so several files share one scorer call.
 
-Beam search, sequential decoding, the per-file (unpooled) driver and
-speculative decoding wait for later slices.
+``run_labelling`` also labels a ground-truth split when given one and
+scores the pseudo-labels against it (``validate_labels``: MER, EN-WER,
+ZH-CER). Beam search, sequential decoding, per-file (unpooled) labelling
+and speculative decoding wait for later slices.
 """
 
 from __future__ import annotations
@@ -408,14 +410,60 @@ def _label_files_pooled(params, config: WhisperConfig, tok: WhisperTokenizer,
 
 def run_labelling(manifest_path: str, model_dir: str, output_dir: str,
                   cfg: LabelConfig = LabelConfig(), tokenizer_dir: Optional[str] = None,
-                  *, policy: DtypePolicy = DtypePolicy(), device=None) -> dict:
-    """CLI entry: load the model and label every file of the manifest."""
+                  validation_manifest: Optional[str] = None, *,
+                  policy: DtypePolicy = DtypePolicy(), device=None) -> dict:
+    """CLI entry: load the model and label every file of the manifest.
+    With ``validation_manifest`` (a labelled split: audio with transcript
+    txts beside it) the split is labelled too and the pseudo-labels are
+    scored against its transcripts (``stats["validation"]``)."""
     from ..models.io import load_model
 
     _check_supported(cfg)
     dev = resolve_device(device)
     params, config = load_model(model_dir)
+    params = prepare_params(params, policy, dev)  # once for both runs
     tok = (WhisperTokenizer.from_pretrained_dir(tokenizer_dir)
            if tokenizer_dir else WhisperTokenizer())
     paths = read_manifest(manifest_path).absolute_paths()
-    return label_files(params, config, tok, paths, output_dir, cfg, policy, device=dev)
+    stats = label_files(params, config, tok, paths, output_dir, cfg, policy, device=dev)
+    if validation_manifest:
+        stats["validation"] = validate_labels(params, config, tok, validation_manifest,
+                                              output_dir, cfg, policy, device=dev)
+    return stats
+
+
+def validate_labels(params, config: WhisperConfig, tok: WhisperTokenizer,
+                    validation_manifest: str, output_dir: str, cfg: LabelConfig,
+                    policy: DtypePolicy = DtypePolicy(), *, device=None) -> dict:
+    """Label a ground-truth split through the same path as the production
+    files, into ``<output_dir>/validation/``, and score each file's CSV text
+    (normalized) against the first line of its transcript txt (markers
+    stripped, normalized) with MixErrorRate: returns {mer, en_wer, zh_cer,
+    n_files}, or {mer: None, n_files: 0} when no pair exists."""
+    from ..text.metrics import MixErrorRate
+    from ..text.normalizer import BasicTextNormalizer
+    from ..text.tokenizer import strip_markers
+
+    vman = read_manifest(validation_manifest)
+    v_audio = vman.absolute_paths()
+    v_txt = vman.transcript_paths()
+    val_dir = os.path.join(output_dir, "validation")
+    os.makedirs(val_dir, exist_ok=True)
+    label_files(params, config, tok, v_audio, val_dir, cfg, policy, device=device, log_every=0)
+    normalizer = BasicTextNormalizer()
+    preds, refs = [], []
+    for apath, tpath in zip(v_audio, v_txt):
+        stem = os.path.splitext(os.path.basename(apath))[0]
+        csv_path = os.path.join(val_dir, f"{stem}.csv")
+        if not (os.path.exists(csv_path) and os.path.exists(tpath)):
+            continue
+        with open(csv_path, encoding="utf-8") as f:
+            rows = list(csv.DictReader(f))
+        preds.append(normalizer("".join(r["text"] for r in rows)))
+        with open(tpath, encoding="utf-8") as f:
+            refs.append(normalizer(strip_markers(f.readline().strip())))
+    if not preds:
+        return {"mer": None, "n_files": 0}
+    scores = MixErrorRate(separate_language=True).compute(preds, refs)
+    return {"mer": scores["MER"], "en_wer": scores["EN WER"], "zh_cer": scores["ZH CER"],
+            "n_files": len(preds)}

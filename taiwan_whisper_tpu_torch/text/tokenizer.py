@@ -43,6 +43,7 @@ NON_SPEECH_TOKENS = [
 BEGIN_SUPPRESS_TOKENS = [220, 50257]  # " " and <|endoftext|>
 
 TIME_PRECISION = 0.02  # seconds per timestamp token step
+SAMPLE_RATE = 16000
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,6 +111,17 @@ class SpecialTokens:
 
 
 MULTILINGUAL = SpecialTokens()
+
+
+def frames_to_timestamp_str(n_frames: int) -> str:
+    """16 kHz audio-frame offset -> '<|T.TT|>' on the 0.02 s (320-sample)
+    grid, rounded half to even as the segmenter of the reference rounds it."""
+    idx = round(n_frames / int(SAMPLE_RATE * TIME_PRECISION))
+    return f"<|{idx * TIME_PRECISION:.2f}|>"
+
+
+def seconds_to_timestamp_str(seconds: float) -> str:
+    return f"<|{round(seconds / TIME_PRECISION) * TIME_PRECISION:.2f}|>"
 
 
 @lru_cache()
@@ -339,6 +351,25 @@ class WhisperTokenizer:
                 pieces.append(f"<unk-{i}>")
         flush()
         return "".join(pieces)
+
+
+def strip_markers(text: str) -> str:
+    """Remove every '<|...|>' span from a transcript string (an unclosed
+    '<|' and what follows it stay)."""
+    out: List[str] = []
+    i = 0
+    while i < len(text):
+        j = text.find("<|", i)
+        if j < 0:
+            out.append(text[i:])
+            break
+        out.append(text[i:j])
+        k = text.find("|>", j + 2)
+        if k < 0:
+            out.append(text[j:])
+            break
+        i = k + 2
+    return "".join(out)
 
 
 def parse_timestamp_str(tok: str) -> Optional[float]:

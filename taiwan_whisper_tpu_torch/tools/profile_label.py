@@ -2,6 +2,9 @@
 
     python -m taiwan_whisper_tpu_torch.tools.profile_label [--preset large-v2]
         [--batch 32] [--tokens 192] [--quantize fp8]
+    # one batch of the prefilter's validator (configs/prefilter_base_0.4.args)
+    python -m taiwan_whisper_tpu_torch.tools.profile_label --preset base \
+        --batch 64 --tokens 445 --quantize 0
 
 Random bf16 weights from a seed, one batch of 30 s chunks of random audio.
 Times each stage of ``pipeline.label.decode_batch`` with the host clock
@@ -108,8 +111,10 @@ def main(argv=None):
         return res, dict(mel_ms=t_mel, encode_ms=t_enc, cross_kv_ms=t_kv,
                          prefill_ms=t_pre, greedy_decode_ms=t_all)
 
-    run(8)  # warm-up: kernel builds, allocator, cuBLAS handles
+    # warm-up: kernel builds, first launches, allocator, cuBLAS handles
+    _, warmup_ms = _timed(lambda: run(8))
     res, stages = run(args.tokens)
+    stages["warmup_ms"] = warmup_ms
     steps = int(max_len - len(sot))
     loop_ms = stages["greedy_decode_ms"] - stages["cross_kv_ms"] - stages["prefill_ms"]
     stages["decode_loop_ms"] = loop_ms

@@ -1,6 +1,6 @@
 """Metrics sinks: stdout and a JSONL file (port of
 taiwan_whisper_tpu/utils/logging.py). The JSONL file is the system of
-record; wandb waits for a later slice of the port (ROADMAP Queue A 8)."""
+record; wandb waits for a later slice of the port (ROADMAP Queue A 6)."""
 
 from __future__ import annotations
 
@@ -14,7 +14,7 @@ class MetricsLogger:
     def __init__(self, output_dir: Optional[str] = None, use_wandb: bool = False):
         if use_wandb:
             raise NotImplementedError(
-                "--wandb waits for a later slice of the port (ROADMAP Queue A 8)")
+                "--wandb waits for a later slice of the port (ROADMAP Queue A 6)")
         self._jsonl = None
         if output_dir:
             os.makedirs(output_dir, exist_ok=True)

@@ -176,3 +176,51 @@ def test_cli_label_shipped_args_matches_jax_cli(tmp_path, corpus, weights, monke
     port_csvs = _read_csvs(str(tmp_path / "port"))
     assert set(port_csvs) == {"f0.csv", "f1.csv"}
     assert port_csvs == _read_csvs(str(tmp_path / "jax"))
+
+
+def test_cli_label_validation_manifest_matches_jax_cli(tmp_path, corpus, weights, monkeypatch):
+    """``cli label --validation_manifest``: the labelled split goes through
+    the same labelling path into ``validation/`` and is scored against its
+    transcript txts; at the fp32 policy the port's validation CSVs and
+    stats (MER, EN-WER, ZH-CER, file count) equal the JAX CLI's. One split
+    file has no txt and is left out of the score, as in JAX."""
+    from taiwan_whisper_tpu import cli as jax_cli
+    from taiwan_whisper_tpu.models.io import save_hf_checkpoint as jax_save
+    from taiwan_whisper_tpu.pipeline import label as jax_label
+    from taiwan_whisper_tpu_torch.audio.io import write_flac
+    from taiwan_whisper_tpu_torch.audio.manifest import Manifest, write_manifest
+    from taiwan_whisper_tpu_torch.pipeline import label as port_label
+
+    jparams, jcfg, _, _ = weights
+    model_dir = str(tmp_path / "model")
+    jax_save(model_dir, jparams, jcfg)
+    val_dir = tmp_path / "val"
+    val_dir.mkdir()
+    rng = np.random.RandomState(1)
+    refs = ["<|0.00|>你好 hello world<|1.00|><|endoftext|>", "測試語音 Whisper 模型",
+            None]
+    for i, ref in enumerate(refs):
+        write_flac(str(val_dir / f"v{i}.flac"), _burst(rng, 1.5 + i))
+        if ref is not None:
+            (val_dir / f"v{i}.txt").write_text(ref + "\nprev\n", encoding="utf-8")
+    val_manifest = str(tmp_path / "valid.tsv")
+    write_manifest(val_manifest, Manifest(root=str(val_dir),
+                                          paths=[f"v{i}.flac" for i in range(3)]))
+    manifest = str(tmp_path / "train.tsv")
+    write_manifest(manifest, Manifest(root=str(corpus), paths=["a.wav", "b.wav"]))
+    common = ["label", "--manifest", manifest, "--model", model_dir, "--batch_size", "4",
+              "--vad_mode", "off", "--max_decode_tokens", "16",
+              "--tokenizer_dir", str(corpus / "tok"), "--validation_manifest", val_manifest]
+    monkeypatch.setattr(jax_label.label_files, "__defaults__",
+                        (JaxLabelConfig(), JaxPolicy.fp32()))
+    monkeypatch.setitem(port_label.run_labelling.__kwdefaults__, "policy",
+                        DtypePolicy.fp32())
+    jax_stats = jax_cli.main(common + ["--output_dir", str(tmp_path / "jax")])
+    stats = port_cli.main(common + ["--output_dir", str(tmp_path / "port"), "--device", "cpu"])
+    assert stats["validation"] == jax_stats["validation"]
+    assert stats["validation"]["n_files"] == 2 and stats["validation"]["mer"] > 0
+    assert stats["files"] == 2
+    for sub in ("", "validation"):
+        got = _read_csvs(str(tmp_path / "port" / sub))
+        assert got == _read_csvs(str(tmp_path / "jax" / sub))
+        assert len(got) == (3 if sub else 2)
