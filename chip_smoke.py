@@ -2,9 +2,9 @@
 
     python3 chip_smoke.py            # every phase, as a release check runs it
     python3 chip_smoke.py kernels    # only the named phases
-                                     # (kernels, label, label_vad, prefilter, train,
-                                     # train_agree, agree; mel, layer_norm: those
-                                     # kernels' main cases)
+                                     # (kernels, label, label_vad, label_beam, longform,
+                                     # prefilter, train, train_agree, agree; mel,
+                                     # layer_norm: those kernels' main cases)
 
 Phases, each raising on failure:
 
@@ -40,7 +40,17 @@ Phases, each raising on failure:
    SDPA and F.layer_norm too; for the decode, log-mel and LayerNorm
    kernels the host microseconds per wrapper call and a rerun that must
    be bitwise equal, and for log-mel and LayerNorm that the wrapper's call
-   launches one kernel.
+   launches one kernel. The cross kernel past one tile of 8 query rows
+   (``cross_tile_cases``): 5, 15, 227 and 1135 rows (a beam-5 step, the
+   beam-5 prefill, a conditioned prefill with a 223-token prompt, that
+   prefill under 5 beams) on int8 and bf16 storage at large-v2 heads and
+   batch 8, timed as above beside SDPA over the dequantized K/V and an
+   einsum, and the label path's 1- and 3-row calls bitwise equal to the
+   same rows of a 15-row call; the self kernel at the beam path's 40 rows
+   (batch 8 x 5 beams). The smoke holds no older kernel, so it cannot
+   compare with one: ``tools/ab_cross_kernel.py --parent DIR`` builds the
+   cross kernel of another checkout and checks those calls bitwise
+   against it.
 3. label   — the port's ``cli label`` at full large-v2 width with random
    bf16 weights from a seed: 8 synthetic WAVs of 170 s (64 chunks, two
    batches of 32), fp8 cross-KV, VAD off, the staged chunk route, 192-token
@@ -59,6 +69,20 @@ Phases, each raising on failure:
    same corpus. Each run's launch counters are checked as in label, the
    shipped run must report at least one group and the group_segs run
    more, all three must cut the same chunks and write byte-equal CSVs.
+4b. label_beam — ``cli label @configs/label_large_v2_beam.args`` as
+   shipped (large-v2, batch 8, 5 beams, int8 cross-KV; spectral VAD and
+   the resident route) on 4 FLAC lectures of 60 s with a 64-token budget,
+   counters exact as in label; then the beam step of one batch (ms a step
+   from two budgets, a traced window: device work by kernel, the cache
+   reorder's and the top-k's ms).
+4c. longform — on the 32-2 student ``cli init-student`` cuts from the same
+   checkpoint: ``cli evaluate`` with ``configs/eval_short.args`` (greedy
+   and ``--num_beams 5``), ``eval_longform_sequential.args`` and
+   ``eval_longform_chunked.args`` on 2 utterances with references, ``cli
+   transcribe`` of a 50 s lecture (sequential, chunked), and
+   ``sequential_decode(temperatures=(0.0,))`` greedy and beam 5, which must
+   run a conditioned prefill of more than 8 rows; every run's counters
+   must show mel, encoder attention, cross and self launches.
 5. prefilter — stage 2 on the port's CLI: ``cli segment`` of 8 FLAC
    lectures of 260 s with seeded pseudo-label CSVs (72 segments), ``cli
    make-manifest --valid_percent 0.1``, then ``cli prefilter
@@ -93,9 +117,14 @@ Phases, each raising on failure:
    for 32 tokens on the card and on the CPU plain path; token agreement
    must be at least 0.98 of positions, and the launch counters, zeroed
    just before the card's run, must equal the count that run implies.
+   Then beam search with 5 beams on the same inputs: all hypotheses'
+   tokens agree on at least 0.98 of positions, and the counters fit the
+   steps run.
 
-Prints the card's name and power limit, a ``kernels`` JSON line, and as the
-last line ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
+Prints the card's name and power limit, a ``kernels`` JSON line (one entry
+per kernel case; ``launches`` is its kernel's count over all the driven
+paths and all shapes, not the case's, and ``launches_by_path`` splits it by
+path), and as the last line ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
 result, without a CUDA card or without the package beside it.
 """
 
@@ -128,9 +157,23 @@ PREFILTER_LECTURES, PREFILTER_SECONDS, PREFILTER_MIN_SEGMENTS = 8, 260.0, 65
 PREFILTER_TRACE_WINDOWS = ((5, 8), (420, 8))
 LABEL_FILES, LABEL_SECONDS, MAX_DECODE_TOKENS = 8, 170.0, 192
 AGREE_BATCH, AGREE_TOKENS = 4, 32
+# configs/label_large_v2_beam.args: batch 8, 5 beams; the beam label phase
+# bounds the budget and labels 4 FLAC lectures of 60 s
+BEAM_BATCH, BEAMS, BEAM_TOKENS = 8, 5, 64
+BEAM_FILES, BEAM_SECONDS = 4, 60.0
+# (first position, steps) of the traced window of the beam loop
+BEAM_TRACE_WINDOW = (3 + 24, 8)
+# query rows of the cross kernel's multi-tile cases: a beam-5 step, the
+# beam-5 prefill of the sot sequence, a conditioned prefill (<|startofprev|>
+# + 223 prompt tokens + the sot sequence), and that prefill under 5 beams
+TILE_ROWS = (5, 15, 227, 1135)
+# the long-form phase: 2 test utterances (evaluate), one lecture (transcribe)
+# and a longer one for sequential_decode's prompts, which grow window by window
+LONGFORM_UTTS, LONGFORM_LECTURE_S, LONGFORM_PROMPT_S = 2, 50.0, 120.0
 FINETUNE_BATCH = 8
 DISTILL_STEPS, FINETUNE_STEPS = 6, 5
 CARD_BYTES = 76e9  # what a run may plan to hold of the card's 80 GB
+SPIN_CYCLES = 10000  # the marker kernels at the ends of a device-time trace (~5 us)
 # card vs CPU device VAD scorer (both fp32; cuFFT against pocketfft)
 VAD_TOL = dict(energy_db=1e-2, flatness=1e-3, mod_ratio=1e-3)
 
@@ -147,6 +190,10 @@ def kernel_counters():
             "layer_norm": layer_norm.layer_norm}
 
 
+# a kernel's name in the kernels line -> its launch counter's key
+COUNTER_OF = {"log_mel": "mel"}
+
+
 def zero_counters():
     for fn in kernel_counters().values():
         fn.launches = 0
@@ -157,12 +204,14 @@ def read_counters():
 
 
 def add_launches(entries: dict, results: dict, path: str, launches: dict):
-    """Record one main path's launch counts: per path in ``results`` and
-    summed over the paths in the kernels line."""
+    """Record one main path's launch counts: per path in ``results``, and
+    per kernel, summed and by path, in the kernels line."""
     results.setdefault("launches_by_path", {})[path] = launches
     for k, n in launches.items():
         e = entries.setdefault(k, {})
         e["launches"] = e.get("launches", 0) + n
+        if n:
+            e.setdefault("by_path", {})[path] = n
 
 
 def log(msg: str):
@@ -211,22 +260,26 @@ def loop_ms(fn, torch, iters: int = 20) -> float:
 
 def kernel_device_ms(key: str, fn, torch, calls: int = 5, tries: int = 3) -> dict:
     """Device milliseconds per call of each kernel ``fn()`` launches, by
-    kernel name (torch.profiler). CUPTI now and then hands back a short
-    trace with none or only some of its kernels; a trace in which a kernel
-    was not seen a whole number of times per call is taken again, up to
-    ``tries`` traces, and the last one's shortfall raises."""
+    kernel name (torch.profiler). CUPTI now and then misses a kernel at an
+    end of the trace, so a short spin kernel (``torch.cuda._sleep``) before
+    and after the calls takes that place and is left out. A trace in which
+    a kernel was still not seen a whole number of times per call is taken
+    again, up to ``tries`` traces, and the last one's shortfall raises."""
     fn()
     torch.cuda.synchronize()
     for attempt in range(1, tries + 1):
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(SPIN_CYCLES)
             for _ in range(calls):
                 fn()
+            torch.cuda._sleep(SPIN_CYCLES)
             torch.cuda.synchronize()
-        seen = {e.key: e for e in prof.key_averages() if e.self_device_time_total > 0}
+        traced = {e.key: e for e in prof.key_averages() if e.self_device_time_total > 0}
+        seen = {k: e for k, e in traced.items() if "spin_kernel" not in k}
         if seen and all(e.count % calls == 0 for e in seen.values()):
             return {k[:80]: e.self_device_time_total / 1e3 / calls for k, e in seen.items()}
         log(f"[kernel] {key}: trace {attempt} of {tries} holds "
-            + (", ".join(f"{k[:80]} x{e.count}" for k, e in seen.items()) or "no kernel")
+            + (", ".join(f"{k[:80]} x{e.count}" for k, e in traced.items()) or "no kernel")
             + f" over {calls} calls")
     raise AssertionError(f"{key}: the profiler traced no whole set of the call's kernels "
                          f"in {tries} traces")
@@ -378,6 +431,70 @@ def self_sdpa(torch, q, ck, cv, k_t, v_t, index, vf):
     return lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask, scale=1.0)
 
 
+def cross_tile_cases(torch, DA, checks, record, g, flush, dev):
+    """The cross kernel past one tile of 8 query rows, at large-v2 heads and
+    the beam config's batch 8: ``TILE_ROWS`` rows on int8 storage (the beam
+    config's cross-KV) and on bf16, against the plain version with the
+    1e-3 tolerance of the 1- and 3-row cases (fp32 output from the same
+    inputs; a bf16 rounding of a probability may differ). Each case is
+    timed flushed, back to back, per kernel and on the host, with a bitwise
+    rerun, beside the plain version, SDPA over the (dequantized, for int8)
+    bf16 K/V (library_ms; the dequantizing cast not counted) and an einsum
+    of the dequantized K/V (logged). Then the label path's 1- and 3-row
+    calls (fp8, batch 32), which run the one-tile code as before, bitwise
+    against the same rows inside a 15-row call: a tile computes its rows
+    exactly as a call of those rows alone."""
+    import torch.nn.functional as F
+
+    D, T, H, b, bf16 = 64, 1500, 20, BEAM_BATCH, torch.bfloat16
+    base = torch.randn((b, H, D, T), generator=g, device=dev)
+    int8 = torch.randint(-127, 128, base.shape, generator=g, device=dev, dtype=torch.int8)
+    stores = {"int8": (int8, int8, 0.002, 1 / 127),
+              "bf16": (base.to(bf16), (base * 0.5).to(bf16), 0.125, 1.0)}
+    for store, (kq, vq, q_scale, v_scale) in stores.items():
+        kq, vq = DA.time_minor_copy(kq), DA.time_minor_copy(vq)
+        kd, vd = kq.to(bf16), vq.to(bf16)  # the dequantized K/V (its scale folds out)
+        kh, vh = kd.transpose(-1, -2), vd.transpose(-1, -2)
+        for rows in TILE_ROWS:
+            qs = (torch.randn((b, rows, H, D), generator=g, device=dev) * q_scale).to(bf16)
+            qh = qs.transpose(1, 2)
+            key = f"cross_attention[bfloat16 q,{store},rows={rows},B={b}]"
+
+            def sdpa():
+                return F.scaled_dot_product_attention(qh, kh, vh, scale=1.0)
+
+            def einsum():
+                probs = torch.softmax(torch.einsum("bqhd,bhdt->bhqt", qs, kd).float(), dim=-1)
+                return torch.einsum("bhqt,bhdt->bqhd", probs.to(bf16), vd)
+
+            record(key, "cross_decode_attention", DECODE_SRC, CROSS_REP,
+                   DA.cross_attention(qs, kq, vq) * v_scale,
+                   DA.cross_attention_plain(qs, kq, vq) * v_scale, 1e-3,
+                   time_ms(lambda: DA.cross_attention(qs, kq, vq), torch, flush=flush),
+                   time_ms(lambda: DA.cross_attention_plain(qs, kq, vq), torch, iters=5,
+                           flush=flush),
+                   cross_bound(qs, kq), time_ms(sdpa, torch, flush=flush))
+            einsum_ms = time_ms(einsum, torch, flush=flush)
+            log(f"[kernel] {key} einsum of the dequantized K/V {einsum_ms:.4f} ms flushed")
+            checks.append(dict(check=f"{key} einsum", einsum_ms=einsum_ms))
+            device_times(key, lambda: DA.cross_attention(qs, kq, vq), sdpa, torch, checks,
+                         host=True)
+    B = LARGE_V2_BATCH
+    base = torch.randn((B, H, D, T), generator=g, device=dev)
+    kq = DA.time_minor_copy((base * 50).to(torch.float8_e4m3fn))
+    vq = DA.time_minor_copy((base * 25).to(torch.float8_e4m3fn))
+    q15 = (torch.randn((B, 15, H, D), generator=g, device=dev) * 0.0025).to(bf16)
+    out15 = DA.cross_attention(q15, kq, vq)
+    same = {f"rows {r.start}-{r.stop - 1}": torch.equal(
+        DA.cross_attention(q15[:, r].contiguous(), kq, vq), out15[:, r])
+        for r in (slice(0, 1), slice(0, 3), slice(8, 11))}
+    log(f"[kernel] cross fp8 B={B}: 1- and 3-row calls bitwise equal to the same rows of a "
+        f"15-row call: {same}")
+    checks.append(dict(check="cross_attention tiles bitwise", **same))
+    if not all(same.values()):
+        raise AssertionError(f"the cross kernel's tiles differ from calls of their rows: {same}")
+
+
 def decode_edge_cases(torch, DA, checks, g, dev):
     """The decode kernels away from the main path's layout: a cross K/V
     that is contiguous, not row-padded (fp8 rows of 1500 bytes cannot take
@@ -435,7 +552,7 @@ def decode_edge_cases(torch, DA, checks, g, dev):
         raise AssertionError(f"decode edge-case launch counts {launches} != expected {expected}")
 
 
-def phase_kernels(torch, entries: dict, checks: list, only=None):
+def phase_kernels(torch, entries: dict, checks: list, case_rows: list, only=None):
     """Every kernel variant a driven path launches, held against its plain
     version: the label path's (large-v2, batch 32, bf16, fp8 cross-KV), the
     prefilter's (whisper-base, batch 64, bf16, unquantized cross-KV, a
@@ -465,6 +582,7 @@ def phase_kernels(torch, entries: dict, checks: list, only=None):
         row = dict(name=name, route="cuda", source=source, replaces=replaces,
                    max_abs_err=err, tolerance=tol, ms=ms, plain_ms=plain_ms,
                    bound_ms=bnd[0], bound_by=bnd[1], library_ms=library_ms)
+        case_rows.append(dict(row, case=key))
         checks.append(dict(check=key, ref_max_abs=ref_max, **{
             k: row[k] for k in ("max_abs_err", "tolerance", "ms", "plain_ms")}))
         log(f"[kernel] {key}: err {err:.3g} (tol {tol:g}, max |plain| {ref_max:.3g}) "
@@ -597,6 +715,7 @@ def phase_kernels(torch, entries: dict, checks: list, only=None):
     cross_cases(PB, PH, bf16, lambda base: {"bf16": (base.to(bf16), (base * 0.5).to(bf16),
                                                      0.125, 1.0)},
                 1e-3, None, timed=("bf16",), tag=f",B={PB},H={PH}")
+    cross_tile_cases(torch, DA, checks, record, g, flush, dev)
 
     # 4. self attention over the cache [B, H, 64, S] (row-padded) at the
     # last step (index S - 1): bf16 at the label path's shapes with no
@@ -651,6 +770,10 @@ def phase_kernels(torch, entries: dict, checks: list, only=None):
     # a 4-block cluster, 200 and 3 run one block
     for index in (PREFILTER_BUDGET - 1, 200, 3):
         self_case(PB, PH, PREFILTER_BUDGET, bf16, None, 1e-3, index, tag=f",B={PB},H={PH}")
+    # the beam label path: the beams are batch rows to the self kernel, B x K
+    # = 40, at the last step of its budget
+    self_case(BEAM_BATCH * BEAMS, H, 3 + BEAM_TOKENS, bf16, None, 1e-3,
+              tag=f",B={BEAM_BATCH}x{BEAMS}")
     attention_backward_cases(torch, entries, checks, record, g, flush)
     for key, t in layer_norm_cases(torch, entries, checks, record, g, flush).items():
         one_kernel(key, t)
@@ -965,13 +1088,13 @@ def write_large_v2(tmp: str, torch) -> str:
     return model_dir
 
 
-def label_launches(cfg, batches: int) -> dict:
+def label_launches(cfg, batches: int, tokens: int = MAX_DECODE_TOKENS) -> dict:
     """Kernel launches of ``batches`` label batches: random weights never
     emit eot, so every batch runs the whole token budget."""
     return {"mel": batches, "encoder_attention": batches * cfg.encoder_layers,
             "encoder_attention_bwd": 0,
-            "cross_decode_attention": batches * cfg.decoder_layers * (1 + MAX_DECODE_TOKENS),
-            "self_decode_attention": batches * cfg.decoder_layers * MAX_DECODE_TOKENS,
+            "cross_decode_attention": batches * cfg.decoder_layers * (1 + tokens),
+            "self_decode_attention": batches * cfg.decoder_layers * tokens,
             "layer_norm": 0}
 
 
@@ -1170,6 +1293,233 @@ def phase_label_vad(torch, entries: dict, results: dict, model_dir: str):
                                 phase_seconds=phase_s)
 
 
+def phase_label_beam(torch, entries: dict, results: dict, model_dir: str):
+    """``cli label @configs/label_large_v2_beam.args`` as shipped (large-v2,
+    batch 8, 5 beams, int8 cross-KV, chunked; spectral VAD on the card and
+    the resident route by default) on ``BEAM_FILES`` FLAC lectures of
+    ``BEAM_SECONDS``, with ``--max_decode_tokens BEAM_TOKENS``. Random
+    weights emit no eot, so no item is done before the budget: the launch
+    counters must equal the greedy count at batch 8 (beams fold into the
+    cross kernel's rows and are batch rows to the self kernel). Then one
+    batch of chunks decoded directly at budgets of 8 and 8 + BEAM_TOKENS
+    gives the ms per beam step (the difference over the extra steps), and a
+    traced window of that loop (``BEAM_TRACE_WINDOW``) its device work by
+    kernel, the cache reorder's (aten::index_select) and the top-k's
+    (aten::topk) device ms and their shares of the step."""
+    from taiwan_whisper_tpu_torch import DtypePolicy, cli, get_config
+    from taiwan_whisper_tpu_torch.audio.io import load_audio_16k
+    from taiwan_whisper_tpu_torch.audio.manifest import Manifest, write_manifest
+    from taiwan_whisper_tpu_torch.decode.longform import decode_audio
+    from taiwan_whisper_tpu_torch.decode.rules import DecodeRules
+    from taiwan_whisper_tpu_torch.models.io import load_model
+    from taiwan_whisper_tpu_torch.models.params import prepare_params
+    from taiwan_whisper_tpu_torch.text.tokenizer import WhisperTokenizer
+    from taiwan_whisper_tpu_torch.tools.synth_audio import write_lecture_flacs
+
+    t_phase = time.perf_counter()
+    cfg = get_config("large-v2")
+    args_file = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
+                             "label_large_v2_beam.args")
+    with tempfile.TemporaryDirectory() as tmp:
+        audio_dir = os.path.join(tmp, "audio")
+        os.makedirs(audio_dir)
+        names = write_lecture_flacs(audio_dir, BEAM_FILES, BEAM_SECONDS, seed=1)
+        manifest = os.path.join(tmp, "manifest.tsv")
+        write_manifest(manifest, Manifest(root=audio_dir, paths=names))
+        out_dir = os.path.join(tmp, "labels")
+        zero_counters()
+        t0 = time.perf_counter()
+        stats = cli.main(["label", f"@{args_file}", "--manifest", manifest, "--model",
+                          model_dir, "--output_dir", out_dir,
+                          "--max_decode_tokens", str(BEAM_TOKENS)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counters()
+        csvs = _read_csvs(out_dir)
+        rows = sum(c.count(b"\n") - 1 for c in csvs.values())
+        audio = np.stack([load_audio_16k(os.path.join(audio_dir, n))[:30 * 16000]
+                          for n in names] * (BEAM_BATCH // BEAM_FILES))
+    batches = stats["batches"]
+    expected = label_launches(cfg, batches, BEAM_TOKENS)
+    rate = stats["audio_seconds"] / stats["wall_seconds"]
+    log(f"[label_beam] {stats['files']} files, {stats['chunks']} chunks, {batches} batches of "
+        f"{BEAM_BATCH} x {BEAMS} beams, groups {stats.get('groups')}: {rate:.2f} audio-s/s "
+        f"(label_files wall {stats['wall_seconds']:.2f} s, cli wall {wall:.2f} s, decode "
+        f"{stats['decode_s']:.2f} s, vad {stats['vad_s']:.3f} s); {len(csvs)} CSVs, "
+        f"{rows} segment rows")
+    log(f"[label_beam] launches {json.dumps(launches)} expected {json.dumps(expected)}")
+    if stats["files"] != BEAM_FILES or len(csvs) != BEAM_FILES or not batches \
+            or stats.get("groups") is None:
+        raise AssertionError(f"label_beam run incomplete or not resident: {stats}")
+    if launches != expected:
+        raise AssertionError(f"label_beam launch counts {launches} != expected {expected}")
+    add_launches(entries, results, "label_beam", launches)
+
+    # the beam step: one batch of chunks at two budgets, then a traced window
+    params, _ = load_model(model_dir)
+    params = prepare_params(params, DtypePolicy(), "cuda")
+    tok = WhisperTokenizer()
+    rules = DecodeRules.from_special(tok.special)
+    sot = tok.sot_sequence("zh")
+    prefix = torch.tensor([sot] * BEAM_BATCH, dtype=torch.int32, device="cuda")
+    wave = torch.from_numpy(audio).cuda()
+
+    def run(budget):
+        return decode_audio(params, wave, prefix, cfg, rules, DtypePolicy(),
+                            max_len=len(sot) + budget, quantize_kv=8, num_beams=BEAMS,
+                            device="cuda")
+
+    run(8)  # warm-up
+    walls = {}
+    for budget in (8, 8 + BEAM_TOKENS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(budget)
+        torch.cuda.synchronize()
+        walls[budget] = time.perf_counter() - t0
+    step_ms = (walls[8 + BEAM_TOKENS] - walls[8]) / BEAM_TOKENS * 1e3
+    [w] = trace_decode_steps(torch, lambda: run(BEAM_TOKENS), (BEAM_TRACE_WINDOW,),
+                             name="beam")
+    # the reorder's strided index_select runs a generic gather kernel: read
+    # both parts from their aten ops
+    shares = {k: w["op_ms_per_step"].get(op, 0.0)
+              for k, op in (("reorder", "aten::index_select"), ("top_k", "aten::topk"))}
+    log(f"[label_beam] beam step (batch {BEAM_BATCH} x {BEAMS}, untraced): {step_ms:.3f} ms "
+        f"(budgets 8 and {8 + BEAM_TOKENS}: {walls[8]:.3f} s, {walls[8 + BEAM_TOKENS]:.3f} s); "
+        f"traced positions {w['first']}-{w['first'] + w['steps'] - 1}: device busy "
+        f"{w['busy_ms_per_step']:.3f} ms per step ({100 * w['busy_ms_per_step'] / step_ms:.1f}% "
+        f"of the untraced step), {w['launch_calls_per_step']:.1f} launch calls per step; "
+        f"reorder {shares['reorder']:.4f} ms ({100 * shares['reorder'] / step_ms:.2f}% of the "
+        f"step), top-k {shares['top_k']:.4f} ms ({100 * shares['top_k'] / step_ms:.2f}%)")
+    for k in w["kernels"][:14]:
+        log(f"    {k['ms_per_step']:8.4f} ms/step {k['calls_per_step']:6.1f}/step  "
+            f"{k['name'][:90]}")
+    phase_s = time.perf_counter() - t_phase
+    log(f"[label_beam] phase wall {phase_s:.1f} s")
+    results["label_beam"] = dict(
+        audio_s_per_s=rate, wall_seconds=stats["wall_seconds"], cli_wall_seconds=wall,
+        chunks=stats["chunks"], batches=batches, groups=stats.get("groups"),
+        decode_s=stats["decode_s"], csvs=len(csvs), segment_rows=rows, beam_step_ms=step_ms,
+        trace_window=w, reorder_ms_per_step=shares["reorder"],
+        top_k_ms_per_step=shares["top_k"], phase_seconds=phase_s)
+
+
+def phase_longform(torch, entries: dict, results: dict, model_dir: str):
+    """The long-form and evaluation paths on the 32-2 student that ``cli
+    init-student`` cuts from the random large-v2 (full-width encoder, 2
+    decoder layers), with a byte-level vocab: ``cli evaluate`` with
+    ``configs/eval_short.args`` (greedy, then ``--num_beams 5``),
+    ``eval_longform_sequential.args`` and ``eval_longform_chunked.args``
+    (manifest, model and vocab overridden) on ``LONGFORM_UTTS`` speech-like
+    utterances with zh/en references; ``cli transcribe`` of a
+    ``LONGFORM_LECTURE_S`` lecture, sequential (srt) and chunked (json);
+    then ``sequential_decode(temperatures=(0.0,))`` on a
+    ``LONGFORM_PROMPT_S`` lecture, greedy and beam 5, which prompts each
+    window after the first with the text before it: a conditioned prefill
+    of more than 8 rows must run (times 5 rows under beam). Each run's counters are zeroed before and read after;
+    mel, encoder attention, cross and self must each have launched, and
+    each output must be there."""
+    from taiwan_whisper_tpu_torch import DtypePolicy, cli, get_config
+    from taiwan_whisper_tpu_torch.audio.io import write_flac
+    from taiwan_whisper_tpu_torch.audio.manifest import Manifest, write_manifest
+    from taiwan_whisper_tpu_torch.decode.longform import sequential_decode
+    from taiwan_whisper_tpu_torch.models.io import load_model
+    from taiwan_whisper_tpu_torch.models.params import prepare_params
+    from taiwan_whisper_tpu_torch.text.tokenizer import WhisperTokenizer
+    from taiwan_whisper_tpu_torch.tools.synth_audio import synth_lecture, write_lecture_flacs
+
+    t_phase = time.perf_counter()
+    configs = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs")
+    path_kernels = ("mel", "encoder_attention", "cross_decode_attention",
+                    "self_decode_attention")
+    runs = {}
+
+    def counted(name, fn):
+        zero_counters()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counters()
+        log(f"[longform] {name}: {wall:.2f} s, launches {json.dumps(launches)}")
+        missing = [k for k in path_kernels if not launches[k]]
+        if missing:
+            raise AssertionError(f"longform {name}: no launch of {missing}")
+        add_launches(entries, results, f"longform_{name}", launches)
+        runs[name] = dict(wall_s=wall, launches=launches)
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        student = os.path.join(tmp, "student-32-2")
+        t0 = time.perf_counter()
+        cli.main(["init-student", "--teacher", model_dir, "--out", student,
+                  "--decoder_layers", "2"])
+        log(f"[longform] init-student 32-2 in {time.perf_counter() - t0:.1f} s")
+        tok_dir, test_dir, lec_dir = (os.path.join(tmp, k) for k in ("tok", "test", "lec"))
+        for d in (tok_dir, test_dir, lec_dir):
+            os.makedirs(d)
+        _byte_vocab(tok_dir)
+        rng = np.random.RandomState(4)
+        refs = ["今天我們來討論語音辨識 hello world", "Whisper 模型的訓練資料 code-switching"]
+        for i in range(LONGFORM_UTTS):
+            write_flac(os.path.join(test_dir, f"u{i}.flac"), synth_lecture(rng, 8.0 + 3 * i))
+            with open(os.path.join(test_dir, f"u{i}.txt"), "w", encoding="utf-8") as f:
+                f.write(refs[i % len(refs)] + "\n")
+        manifest = os.path.join(tmp, "test.tsv")
+        write_manifest(manifest, Manifest(root=test_dir, paths=[
+            f"u{i}.flac" for i in range(LONGFORM_UTTS)]))
+        [lecture] = write_lecture_flacs(lec_dir, 1, LONGFORM_LECTURE_S, seed=5)
+
+        common = ["--manifest", manifest, "--model", student, "--tokenizer_dir", tok_dir]
+        for name, argv in (
+                ("evaluate_short", ["evaluate", f"@{configs}/eval_short.args"]),
+                ("evaluate_short_beam5", ["evaluate", f"@{configs}/eval_short.args",
+                                          "--num_beams", str(BEAMS)]),
+                ("evaluate_sequential", ["evaluate",
+                                         f"@{configs}/eval_longform_sequential.args"]),
+                ("evaluate_chunked", ["evaluate", f"@{configs}/eval_longform_chunked.args"])):
+            out_dir = os.path.join(tmp, name)
+            metrics = counted(name, lambda: cli.main(argv + common + ["--output_dir", out_dir]))
+            with open(os.path.join(out_dir, "eval_predictions.tsv"), encoding="utf-8") as f:
+                lines = f.read().splitlines()
+            log(f"[longform] {name}: {json.dumps(metrics)}")
+            if metrics["n_samples"] != LONGFORM_UTTS or len(lines) != LONGFORM_UTTS + 1 \
+                    or not np.isfinite(metrics["mer"]):
+                raise AssertionError(f"{name}: {metrics}, {len(lines)} prediction lines")
+            runs[name]["metrics"] = metrics
+        for strategy, fmt in (("sequential", "srt"), ("chunked", "json")):
+            out_dir = os.path.join(tmp, f"transcribe_{strategy}")
+            segments = counted(f"transcribe_{strategy}", lambda: cli.main([
+                "transcribe", "--audio", lec_dir, "--model", student, "--tokenizer_dir",
+                tok_dir, "--output_dir", out_dir, "--strategy", strategy, "--format", fmt]))
+            written = os.path.join(out_dir, lecture.replace(".flac", f".{fmt}"))
+            log(f"[longform] transcribe {strategy}: {segments}, {os.path.getsize(written)} "
+                f"bytes of {fmt}")
+            if not os.path.getsize(written) or list(segments.values()) == [0]:
+                raise AssertionError(f"transcribe {strategy}: {segments}")
+            runs[f"transcribe_{strategy}"]["segments"] = list(segments.values())[0]
+
+        params, scfg = load_model(student)
+        params = prepare_params(params, DtypePolicy(), "cuda")
+        audio = synth_lecture(np.random.RandomState(6), LONGFORM_PROMPT_S)
+        tok = WhisperTokenizer.from_pretrained_dir(tok_dir)
+        for beams in (1, BEAMS):
+            stats = {}
+            res = counted(f"sequential_beams{beams}", lambda: sequential_decode(
+                params, audio, scfg, tok, temperatures=(0.0,), num_beams=beams,
+                device="cuda", stats=stats))
+            log(f"[longform] sequential_decode, beams {beams}: {len(res.segments)} segments, "
+                f"{stats['windows']} windows, longest prefix {stats['max_prefix']} tokens "
+                f"({stats['max_prefix'] * beams} cross query rows an item)")
+            if stats["max_prefix"] <= 8 or not res.segments:
+                raise AssertionError(f"sequential_decode beams {beams}: no conditioned "
+                                     f"prefill of more than 8 rows ran: {stats}")
+            runs[f"sequential_beams{beams}"].update(stats, segments=len(res.segments))
+    phase_s = time.perf_counter() - t_phase
+    log(f"[longform] phase wall {phase_s:.1f} s")
+    results["longform"] = dict(runs, phase_seconds=phase_s)
+
+
 PREFILTER_WORDS = ["今天", "我們", "來", "討論", "語音", "辨識", "模型", "的", "訓練", "資料",
                    "hello", "world", "Whisper", "GPU", "code-switching", "，", "。"]
 
@@ -1363,7 +1713,7 @@ def phase_prefilter(torch, entries: dict, results: dict):
         phase_seconds=phase_s)
 
 
-def trace_decode_steps(torch, run, windows) -> list:
+def trace_decode_steps(torch, run, windows, name: str = "prefilter") -> list:
     """``run()`` with torch.profiler on over each (first position, steps)
     window of the greedy loop it drives: ``models.whisper.decode_step`` is
     wrapped for the call, so that the profiler starts (after a sync) as the
@@ -1373,7 +1723,10 @@ def trace_decode_steps(torch, run, windows) -> list:
     token. Each window is traced once; the traces are read after ``run()``
     returns. Returns, per window, the device ms per step by kernel, its sum
     (busy), the traced wall per step and the host's kernel-launch calls per
-    step; writes each trace under chiprun_out/."""
+    step, and the device ms per step under each aten op; writes each trace
+    under chiprun_out/ as ``<name>_steps_<first>.json``.
+    Beam search calls ``decode_step`` too: its window holds the step, then
+    the rules, top-k and cache reorder of the next."""
     from taiwan_whisper_tpu_torch.models import whisper as M
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -1412,10 +1765,14 @@ def trace_decode_steps(torch, run, windows) -> list:
                           and e.self_device_time_total > 0), reverse=True)
         launch_calls = sum(e.count for e in avg if e.device_type == torch.autograd.DeviceType.CPU
                            and e.key.startswith(("cudaLaunch", "cuLaunch")))
-        prof.export_chrome_trace(os.path.join("chiprun_out", f"prefilter_steps_{first}.json"))
+        # device time under each aten op (its kernels), for ops no kernel name tells apart
+        op_ms = {e.key: e.device_time_total / 1e3 / n for e in avg
+                 if e.device_type == torch.autograd.DeviceType.CPU and e.key.startswith("aten::")
+                 and e.device_time_total > 0}
+        prof.export_chrome_trace(os.path.join("chiprun_out", f"{name}_steps_{first}.json"))
         out.append(dict(first=first, steps=n, traced_ms_per_step=wall / n,
                         busy_ms_per_step=sum(k[0] for k in kernels),
-                        launch_calls_per_step=launch_calls / n,
+                        launch_calls_per_step=launch_calls / n, op_ms_per_step=op_ms,
                         kernels=[dict(name=k[:100], ms_per_step=ms, calls_per_step=c)
                                  for ms, c, k in kernels]))
     return out
@@ -1665,6 +2022,38 @@ def phase_agree(torch, results: dict):
         raise AssertionError(f"card-vs-CPU token agreement {agreement:.4f} < 0.98")
     results["agree"] = dict(agreement=agreement, first_mismatch=first, launches=launches)
 
+    # beam search, 5 beams, the same inputs: card vs CPU
+    from taiwan_whisper_tpu_torch.decode.beam import beam_decode
+
+    beam_out = {}
+    for dev in ("cuda", "cpu"):
+        params = prepare_params(weights, pol, dev)
+        if dev == "cuda":
+            zero_counters()
+        with torch.inference_mode():
+            enc = M.encode(params, mel_kernel.log_mel(audio.to(dev)), cfg, pol)
+        res = beam_decode(params, enc, prefix, cfg, rules, pol, num_beams=BEAMS,
+                          max_len=len(sot) + AGREE_TOKENS, device=dev)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launches = read_counters()
+        beam_out[dev] = res.all_tokens[:, :, len(sot):].cpu().numpy()
+    # a step is one cross and one self launch a layer, the prefill one cross
+    steps = launches["self_decode_attention"] // cfg.decoder_layers
+    consistent = (launches["mel"] == 1 and launches["encoder_attention"] == cfg.encoder_layers
+                  and launches["self_decode_attention"] == cfg.decoder_layers * steps
+                  and launches["cross_decode_attention"] == cfg.decoder_layers * (1 + steps)
+                  and 0 < steps <= AGREE_TOKENS)
+    beam_agreement = float((beam_out["cuda"] == beam_out["cpu"]).mean())
+    log(f"[agree] beam {BEAMS}, base fp32, batch {AGREE_BATCH}, {AGREE_TOKENS} tokens: card-vs-CPU "
+        f"agreement of all hypotheses' tokens {beam_agreement:.4f}; launches "
+        f"{json.dumps(launches)} ({steps} steps)")
+    if not consistent:
+        raise AssertionError(f"agree beam launch counts {launches} do not fit {steps} steps")
+    if beam_agreement < 0.98:
+        raise AssertionError(f"card-vs-CPU beam token agreement {beam_agreement:.4f} < 0.98")
+    results["agree"].update(beam_agreement=beam_agreement, beam_launches=launches)
+
 
 def main(argv) -> int:
     try:
@@ -1680,8 +2069,9 @@ def main(argv) -> int:
     except ImportError as e:
         print(f"chip_smoke: run from the repository root ({e})", file=sys.stderr)
         return 2
-    phases = argv or ["kernels", "label", "label_vad", "prefilter", "train", "train_agree",
-                      "agree"]
+    t_start = time.perf_counter()
+    phases = argv or ["kernels", "label", "label_vad", "label_beam", "longform", "prefilter",
+                      "train", "train_agree", "agree"]
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -1689,18 +2079,24 @@ def main(argv) -> int:
     log(smi)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     phase_build()
-    entries, checks, results = {}, [], {}
+    entries, checks, results, case_rows = {}, [], {}, []
     groups = [p for p in phases if p in ("mel", "layer_norm")]
     if "kernels" in phases or groups:
-        phase_kernels(torch, entries, checks, None if "kernels" in phases else groups)
+        phase_kernels(torch, entries, checks, case_rows,
+                      None if "kernels" in phases else groups)
         log("checks " + json.dumps({"checks": checks}))
     with tempfile.TemporaryDirectory() as tmp:
         model_dir = (write_large_v2(tmp, torch)
-                     if {"label", "label_vad", "train"} & set(phases) else None)
+                     if {"label", "label_vad", "label_beam", "longform", "train"} & set(phases)
+                     else None)
         if "label" in phases:
             phase_label(torch, entries, results, model_dir)
         if "label_vad" in phases:
             phase_label_vad(torch, entries, results, model_dir)
+        if "label_beam" in phases:
+            phase_label_beam(torch, entries, results, model_dir)
+        if "longform" in phases:
+            phase_longform(torch, entries, results, model_dir)
         if "prefilter" in phases:
             phase_prefilter(torch, entries, results)
         if "train" in phases:
@@ -1710,12 +2106,19 @@ def main(argv) -> int:
     if "agree" in phases:
         phase_agree(torch, results)
     log("results " + json.dumps(results))
-    log(json.dumps({"kernels": [dict(name=r["name"], route=r["route"], source=r["source"],
-                                     replaces=r["replaces"], launches=r.get("launches"),
+    log(f"[smoke] phases {' '.join(phases)}: {time.perf_counter() - t_start:.1f} s")
+    # every kernel case; launches are the kernel's, all its shapes, not the
+    # case's: summed over the driven paths and, in launches_by_path, by path
+    counted = {r["name"]: entries.get(COUNTER_OF.get(r["name"], r["name"]), {})
+               for r in case_rows}
+    log(json.dumps({"kernels": [dict(name=r["name"], case=r["case"], route=r["route"],
+                                     source=r["source"], replaces=r["replaces"],
+                                     launches=counted[r["name"]].get("launches", 0),
+                                     launches_by_path=counted[r["name"]].get("by_path", {}),
                                      max_abs_err=r["max_abs_err"], ms=r["ms"],
                                      plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                                      bound_by=r["bound_by"], library_ms=r["library_ms"])
-                                for r in entries.values() if "ms" in r]}))
+                                for r in case_rows]}))
     log(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

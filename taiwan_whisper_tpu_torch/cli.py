@@ -14,13 +14,19 @@
         --output_dir ... [--device cuda|cpu]
     python -m taiwan_whisper_tpu_torch.cli finetune --manifest ... --model ... \\
         --output_dir ... [--freeze_encoder] [--device cuda|cpu]
+    python -m taiwan_whisper_tpu_torch.cli evaluate --manifest ... --model ... \\
+        [--mode short|sequential|chunked] [--num_beams N] [--device cuda|cpu]
+    python -m taiwan_whisper_tpu_torch.cli transcribe --audio ... --model ... \\
+        --output_dir ... [--strategy chunked|sequential] [--format srt|vtt|txt|json]
 
 Each subcommand takes the JAX CLI's flags and defaults
 (taiwan_whisper_tpu/cli.py); those that run a model also take
 ``--device``, and ``distill`` and ``finetune`` ``--compute_dtype`` (bf16,
 the JAX CLI's policy, or fp32) and ``--logging_steps``. Options this slice
-does not run yet raise NotImplementedError naming their ROADMAP item.
-``transcribe``, ``evaluate`` and ``sweep`` wait for later slices.
+does not run yet raise NotImplementedError naming their ROADMAP item:
+label's ``--assistant`` and evaluate's ``--mode speculative`` (Queue A 5),
+``--quantize_kv 4`` (Queue A 4), ``--distributed`` (Queue A 6). ``sweep``
+waits for a later slice (Queue A 6).
 """
 
 from __future__ import annotations
@@ -51,7 +57,6 @@ def cmd_label(args):
     from .pipeline.label import LabelConfig, run_labelling
 
     unported = [name for name, on in (
-        ("--no_pooled", args.no_pooled),
         ("--assistant", args.assistant is not None),
         ("--distributed", args.distributed),
     ) if on]
@@ -68,6 +73,7 @@ def cmd_label(args):
             vad_mode=args.vad_mode,
             quantize_kv=args.quantize_kv,
             num_beams=args.num_beams,
+            pooled=not args.no_pooled,
             wire_mode=args.wire_mode,
             max_decode_tokens=args.max_decode_tokens,
             pack_regions=args.pack_regions,
@@ -249,6 +255,91 @@ def cmd_init_student(args):
     print(f"[init-student] wrote {args.out}")
 
 
+def _load_for(args):
+    """(params on --device in the checkpoint's dtype, config, tokenizer
+    whose token layout the checkpoint's vocab size implies). The decode
+    entry points cast the params to their policy."""
+    from .models.config import resolve_device
+    from .models.io import load_model
+    from .models.params import map_params
+    from .text.tokenizer import WhisperTokenizer, special_for_vocab
+
+    if args.distributed:
+        raise NotImplementedError(f"--distributed {_UNPORTED}")
+    dev = resolve_device(args.device)
+    params, config = load_model(args.model)
+    params = map_params(lambda _, t: t.to(dev), params)
+    special = special_for_vocab(config.vocab_size)
+    tok = (WhisperTokenizer.from_pretrained_dir(args.tokenizer_dir, special=special)
+           if args.tokenizer_dir else WhisperTokenizer(special))
+    return params, config, tok, dev
+
+
+def cmd_evaluate(args):
+    from .pipeline.evaluate import EvalConfig, evaluate_manifest
+
+    if args.assistant:
+        raise NotImplementedError("--assistant (speculative evaluation) waits for a later "
+                                  "slice of the port (ROADMAP Queue A 5)")
+    params, config, tok, dev = _load_for(args)
+    res = evaluate_manifest(
+        params, config, tok, args.manifest,
+        EvalConfig(language=args.language, mode=args.mode, batch_size=args.batch_size,
+                   num_beams=args.num_beams),
+        output_dir=args.output_dir, device=dev)
+    metrics = {"mer": res.mer, "en_wer": res.en_wer, "zh_cer": res.zh_cer, "rtf": res.rtf,
+               "audio_seconds_per_second": res.audio_seconds_per_second,
+               "n_samples": res.n_samples}
+    print(json.dumps(metrics))
+    return metrics
+
+
+def cmd_transcribe(args):
+    """Long-form transcription of audio files to txt, srt, vtt or json."""
+    from .audio.io import load_audio_16k
+    from .decode.longform import chunked_decode, sequential_decode
+    from .text.subtitles import Cue, write_srt, write_vtt
+
+    params, config, tok, dev = _load_for(args)
+    language = None if args.language.lower() in ("none", "") else args.language
+    files = []
+    for pattern in args.audio:
+        if os.path.isdir(pattern):
+            files.extend(sorted(glob.glob(os.path.join(pattern, "*.flac")))
+                         + sorted(glob.glob(os.path.join(pattern, "*.wav"))))
+        else:
+            files.extend(sorted(glob.glob(pattern)) or [pattern])
+    os.makedirs(args.output_dir, exist_ok=True)
+    results = {}
+    for path in files:
+        audio = load_audio_16k(path)
+        if args.strategy == "sequential":
+            res = sequential_decode(params, audio, config, tok, language=language,
+                                    quantize_cross_kv=args.quantize_kv,
+                                    num_beams=args.num_beams, device=dev)
+        else:
+            res = chunked_decode(params, audio, config, tok, language=language,
+                                 batch_size=args.batch_size, quantize_cross_kv=args.quantize_kv,
+                                 num_beams=args.num_beams, device=dev)
+        stem = os.path.splitext(os.path.basename(path))[0]
+        cues = [Cue(s.start, s.end, s.text(tok)) for s in res.segments]
+        out_base = os.path.join(args.output_dir, stem)
+        if args.format == "txt":
+            with open(out_base + ".txt", "w", encoding="utf-8") as f:
+                f.write(res.text(tok).strip() + "\n")
+        elif args.format == "srt":
+            write_srt(out_base + ".srt", cues)
+        elif args.format == "vtt":
+            write_vtt(out_base + ".vtt", cues)
+        else:
+            with open(out_base + ".json", "w", encoding="utf-8") as f:
+                json.dump([{"start": c.start, "end": c.end, "text": c.text} for c in cues],
+                          f, ensure_ascii=False, indent=1)
+        results[path] = len(cues)
+        print(f"[transcribe] {path}: {len(cues)} segments")
+    return results
+
+
 def _add_model_common(p: argparse.ArgumentParser):
     p.add_argument("--tokenizer_dir", default=None,
                    help="dir with vocab.json/merges.txt (optional)")
@@ -396,6 +487,39 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--eval_manifest", default=None)
     _add_train_common(p)
     p.set_defaults(fn=cmd_finetune)
+
+    p = sub.add_parser("evaluate", help="stage 4: MER + RTF eval")
+    p.add_argument("--manifest", required=True)
+    p.add_argument("--model", required=True)
+    p.add_argument("--output_dir", default=None)
+    p.add_argument("--language", default="zh",
+                   help="forced language; 'none' for *.en models")
+    p.add_argument("--mode", default="short",
+                   choices=["short", "sequential", "chunked", "speculative"],
+                   help="speculative waits for a later slice")
+    p.add_argument("--assistant", default=None,
+                   help="assistant (draft) model dir for --mode speculative")
+    p.add_argument("--batch_size", type=int, default=16)
+    p.add_argument("--num_beams", type=int, default=1)
+    _add_model_common(p)
+    p.set_defaults(fn=cmd_evaluate)
+
+    p = sub.add_parser("transcribe", help="long-form ASR -> txt/srt/vtt/json")
+    p.add_argument("--audio", nargs="+", required=True,
+                   help="audio files, globs, or directories")
+    p.add_argument("--model", required=True)
+    p.add_argument("--output_dir", required=True)
+    p.add_argument("--language", default="zh",
+                   help="forced language; 'none' for *.en models")
+    p.add_argument("--strategy", default="chunked", choices=["chunked", "sequential"])
+    p.add_argument("--format", default="srt", choices=["txt", "srt", "vtt", "json"])
+    p.add_argument("--batch_size", type=int, default=8)
+    p.add_argument("--quantize_kv", type=_quant_arg, nargs="?", const=8,
+                   default=0, metavar="MODE",
+                   help="off/8/fp8 (bare flag = int8; 4 waits for a later slice)")
+    p.add_argument("--num_beams", type=int, default=1)
+    _add_model_common(p)
+    p.set_defaults(fn=cmd_transcribe)
 
     p = sub.add_parser("init-student", help="maximally-spaced student init")
     p.add_argument("--teacher", required=True)

@@ -27,7 +27,7 @@
 //     once, which beat two tiles in 1.2-1.4 waves (PERF.md). One bulk copy
 //     per row was slower still: ~2500 small copies per SM per call, and the
 //     copy engine's issue rate set the time;
-//  2. computes the scores of its 1-8 query rows: a thread takes 4 positions
+//  2. computes the scores of its tile of 1-8 query rows: a thread takes 4 positions
 //     of one quarter of the 64 d rows, dequantizing int8 / fp8 in
 //     registers, and the four quarters meet in 3 shuffles. Each thread keeps
 //     a running (max, sum of exponentials) of its positions;
@@ -39,6 +39,16 @@
 //     reduces the 8 rows over the lanes in 9 shuffles and writes the
 //     partial into CTA 0's shared memory, where CTA 0 adds the C partials in
 //     rank order and writes the fp32 output.
+// Cross attention takes any number of query rows R (prefill of a long prompt,
+// beams folded into the query axis): the rows are cut into tiles of 8 on the
+// grid's y axis, and each tile is a cluster of its own that stages the span
+// again. On int8 or fp8 storage one layer's K/V at batch 8 (30.7 MB at
+// large-v2) fits in the 50 MB L2, so the tiles after the first mostly read
+// L2; bf16 storage (61.4 MB) does not, and each tile re-streams it from HBM.
+// A tile computes its rows exactly as a
+// call with those rows alone would: each row's scores, statistics and P V
+// are taken on their own, in the same order, whatever the tile's other rows.
+// Calls of up to 8 rows run one tile, as before.
 // No atomics: the result is deterministic. The self kernel reads positions
 // valid_from <= t < index and folds the current token's logit and value in
 // through the same max and sum (every CTA adds the logit after the cluster
@@ -67,7 +77,8 @@ constexpr int D = 64;
 __host__ __device__ constexpr int threads_of(bool self) { return self ? 128 : 256; }
 // the self kernel stages V into K's tile once the scores are taken (step 1)
 __host__ __device__ constexpr bool one_tile(bool self) { return self; }
-constexpr int MAX_ROWS = 8;
+constexpr int MAX_ROWS = 8;        // query rows per tile
+constexpr int MAX_TILES = 448;     // tiles per call: up to 8 x 448 query rows
 constexpr int SPAN_ALIGN = 16;     // positions: 16 bytes of fp8, 32 of bf16, 64 of fp32
 constexpr int MAX_SMEM = 232448;   // the 227 KB one block may take on an H100
 constexpr int QSTRIDE = D + 8;     // floats per staged q row (see q_at)
@@ -199,7 +210,7 @@ struct Args {
   const void* q; long long qsb, qsr, qsh;  // [B, R, H, D] pre-scaled, d contiguous
   const void* k; long long ksb, ksh, ksd;  // [B, H, D, T] time-minor, t contiguous
   const void* v; long long vsb, vsh, vsd;
-  float* o; long long osb, osr, osh;       // fp32 [B, R, H, D]
+  float* o; long long osb, osr, osh;       // fp32 [B, R, H, D]; cross: R rows in tiles of ROWS
   const void* kt; long long ktsb, ktsh;    // self: the current token's k, v [B, H, D]
   const void* vt; long long vtsb, vtsh;
   const int* valid_from;                   // self: first valid position per b; null: 0
@@ -225,7 +236,8 @@ __global__ void __launch_bounds__(threads_of(SELF)) attend(const Args a) {
   const int C = a.cluster;
   const int rank = C > 1 ? (int)cg::this_cluster().block_rank() : 0;
   const int bh = blockIdx.x / C, b = bh / a.H, h = bh % a.H;
-  const int R = SELF ? 1 : a.R;
+  const int row0 = SELF ? 0 : (int)blockIdx.y * ROWS;  // this tile's first query row
+  const int R = SELF ? 1 : min(a.R - row0, ROWS);
   const int span = a.span, span_b = span * E;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
 
@@ -253,7 +265,8 @@ __global__ void __launch_bounds__(threads_of(SELF)) attend(const Args a) {
 #pragma unroll
   for (int j = 0; j < QPT; ++j) {
     const int i = tid + j * NT, r = i / D, d = i % D;
-    qv[j] = r < R ? to_f(static_cast<const TQ*>(a.q)[b * a.qsb + r * a.qsr + h * a.qsh + d]) : 0.f;
+    qv[j] = r < R ? to_f(static_cast<const TQ*>(a.q)[b * a.qsb + (row0 + r) * a.qsr + h * a.qsh + d])
+                  : 0.f;
   }
   const int nch = n / VEC;
   stage<NT>(ks, static_cast<const TKV*>(a.k) + b * a.ksb + h * a.ksh + ta, a.ksd, span_b, nch);
@@ -430,7 +443,7 @@ __global__ void __launch_bounds__(threads_of(SELF)) attend(const Args a) {
       float s = 0.f;
       for (int c = 0; c < C; ++c) s += part[(c * ROWS + r) * D + d];
       if (SELF) s += p_cur * to_f(vt[d]);
-      a.o[b * a.osb + r * a.osr + h * a.osh + d] = s;
+      a.o[b * a.osb + (row0 + r) * a.osr + h * a.osh + d] = s;
     }
   }
 }
@@ -461,7 +474,8 @@ int launch(const Args& a, int B, cudaStream_t st) {
   at[0].val.clusterDim.y = 1;
   at[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)(B * a.H * a.cluster));
+  // y: the tiles of ROWS query rows (one for the self kernel)
+  cfg.gridDim = dim3((unsigned)(B * a.H * a.cluster), (unsigned)((a.R + ROWS - 1) / ROWS));
   cfg.blockDim = dim3(threads_of(SELF));
   cfg.dynamicSmemBytes = smem;
   cfg.stream = st;
@@ -487,6 +501,7 @@ bool rows_ok(const void* p, long long sb, long long sh, long long sd, int elem, 
 
 int elem_size(int dtype) { return dtype == 0 ? 4 : dtype == 1 ? 2 : 1; }
 
+// the tile's row count: 1, 4 or 8 (any R above 8 runs tiles of 8)
 template <typename TQ, typename TKV>
 int cross(const Args& a, int B, cudaStream_t st) {
   if (a.R == 1) return launch<TQ, TKV, 1, false>(a, B, st);
@@ -504,7 +519,7 @@ extern "C" int twt_cross_attention(
     const void* v, long long vsb, long long vsh, long long vsd,
     void* o, long long osb, long long osr, long long osh, void* stream) {
   const int es = elem_size(kv_dtype);
-  if (R < 1 || R > MAX_ROWS || T < 1 || !split_ok(T, cluster, span) ||
+  if (R < 1 || R > MAX_ROWS * MAX_TILES || T < 1 || !split_ok(T, cluster, span) ||
       !rows_ok(k, ksb, ksh, ksd, es, T) || !rows_ok(v, vsb, vsh, vsd, es, T))
     return (int)cudaErrorInvalidValue;
   Args a{};

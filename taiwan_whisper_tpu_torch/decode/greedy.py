@@ -1,5 +1,9 @@
-"""KV-cached greedy decoding (port of taiwan_whisper_tpu/decode/greedy.py
-at temperature 0; the sampling branch waits for sequential long-form).
+"""KV-cached greedy and sampled decoding (port of
+taiwan_whisper_tpu/decode/greedy.py). Temperature 0 takes the fused rules
+argmax; a temperature above 0 samples from the rule-masked logits over
+that temperature, with a ``torch.Generator`` the caller owns (the JAX
+package threads a PRNG key; the two streams differ by design, so sampled
+tokens are compared only with both samplers patched to argmax).
 
 The JAX ``lax.while_loop`` becomes a Python loop. Like the JAX loop it
 runs ``decode_step`` on every iteration, including the last. Its early
@@ -17,7 +21,7 @@ import torch
 
 from ..models import whisper as M
 from ..models.config import DtypePolicy, WhisperConfig, resolve_device
-from .rules import DecodeRules, greedy_rules_argmax
+from .rules import DecodeRules, apply_rules, greedy_rules_argmax
 
 _POLL_EVERY = 8  # decode steps between host checks of all(finished)
 
@@ -33,16 +37,26 @@ class DecodeResult:
     no_speech_probs: torch.Tensor  # [B] fp32
 
 
+def _sample(masked: torch.Tensor, temperature: float,
+            generator: torch.Generator) -> torch.Tensor:
+    """One token per row drawn from softmax(masked / temperature): [B] int64."""
+    probs = torch.softmax(masked / temperature, dim=-1)
+    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+
+
 @torch.inference_mode()
 def greedy_decode(params, enc_out: torch.Tensor, prefix: torch.Tensor,
                   config: WhisperConfig, rules: DecodeRules,
                   policy: DtypePolicy = DtypePolicy(), *,
-                  max_len: Optional[int] = None, sot_index: int = 0,
+                  max_len: Optional[int] = None, temperature: float = 0.0,
+                  generator: Optional[torch.Generator] = None, sot_index: int = 0,
                   valid_from: Optional[torch.Tensor] = None,
                   quantize_cross_kv=0, device=None) -> DecodeResult:
-    """Greedy decode of a batch: enc_out [B, T_enc, d], prefix [B, P] (the
-    sot sequence). ``params`` are prepared for ``device`` (cuda unless
-    given; raises when CUDA is absent)."""
+    """Greedy (``temperature`` 0) or sampled decode of a batch: enc_out
+    [B, T_enc, d], prefix [B, P] (the sot sequence, after any prompt).
+    ``params`` are prepared for ``device`` (cuda unless given; raises when
+    CUDA is absent). ``generator`` (on ``device``; seed 0 when not given)
+    draws the samples."""
     dev = resolve_device(device)
     enc_out = enc_out.to(dev)
     prefix = prefix.to(dev)
@@ -68,13 +82,22 @@ def greedy_decode(params, enc_out: torch.Tensor, prefix: torch.Tensor,
     finished = torch.zeros(b, dtype=torch.bool, device=dev)
     sum_logprobs = torch.zeros(b, dtype=torch.float32, device=dev)
     lengths = torch.zeros(b, dtype=torch.int32, device=dev)
+    if temperature > 0.0 and generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
 
     for i in range(p_len, max_len):
         step = i - p_len
-        nxt, logprob = greedy_rules_argmax(
-            logits, step=step, last_token=tokens[:, i - 1],
-            penult_token=tokens[:, max(i - 2, 0)], last_timestamp=last_ts,
-            rules=rules, suppress=suppress, begin_suppress=begin_suppress)
+        state = dict(step=step, last_token=tokens[:, i - 1],
+                     penult_token=tokens[:, max(i - 2, 0)], last_timestamp=last_ts,
+                     rules=rules, suppress=suppress, begin_suppress=begin_suppress)
+        if temperature == 0.0:
+            nxt, logprob = greedy_rules_argmax(logits, **state)
+        else:
+            masked = apply_rules(logits, **state)
+            nxt = _sample(masked, temperature, generator).to(torch.int32)
+            # the sampled token's logprob: its masked logit less the logsumexp
+            chosen = masked.gather(-1, nxt[:, None].long())[:, 0]
+            logprob = chosen - torch.logsumexp(masked, dim=-1)
         active = ~finished
         nxt = torch.where(active, nxt, eot)
         sum_logprobs += torch.where(active, logprob, 0.0)

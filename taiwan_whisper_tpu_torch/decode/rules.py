@@ -1,7 +1,7 @@
-"""Whisper decoding rules for the greedy loop (port of
-taiwan_whisper_tpu/decode/rules.py: DecodeRules, _rule_mask,
-greedy_rules_argmax). ``apply_rules`` (sampling, beam search) waits for
-the slice that needs it.
+"""Whisper decoding rules (port of taiwan_whisper_tpu/decode/rules.py:
+DecodeRules, apply_rules, _rule_mask, greedy_rules_argmax). The greedy
+loop takes the fused ``greedy_rules_argmax``; sampling and beam search
+take the masked logits of ``apply_rules``.
 
 The rule state is three values per row — last token, penultimate token,
 most recent timestamp — since Whisper timestamps are non-decreasing.
@@ -91,6 +91,28 @@ def _rule_mask(*, step: int, last_token, penult_token, last_timestamp,
         if rules.max_initial_timestamp_index is not None:
             mask = mask | (token_ids > ts_begin + rules.max_initial_timestamp_index)
     return mask
+
+
+def apply_rules(logits: torch.Tensor, *, step: int, last_token, penult_token, last_timestamp,
+                rules: DecodeRules, suppress, begin_suppress) -> torch.Tensor:
+    """The whole Whisper rule stack on ``logits`` [B, V]: rules 1-5 as
+    ``_rule_mask``, then rule 6 (the total timestamp probability beats the
+    best text token: force a timestamp). Returns the masked logits [B, V];
+    nothing is renormalised."""
+    v = rules.vocab_size
+    token_ids = torch.arange(v, device=logits.device)[None, :]
+    mask = _rule_mask(step=step, last_token=last_token, penult_token=penult_token,
+                      last_timestamp=last_timestamp, rules=rules, suppress=suppress,
+                      begin_suppress=begin_suppress, token_ids=token_ids)
+    logits = logits.masked_fill(mask, NEG_INF)
+    if not rules.timestamps:
+        return logits
+    is_ts_col = token_ids >= rules.timestamp_begin
+    logprobs = torch.log_softmax(logits, dim=-1)
+    ts_logprob = torch.logsumexp(logprobs.masked_fill(~is_ts_col, NEG_INF), dim=-1)
+    max_text = logprobs.masked_fill(is_ts_col, NEG_INF).amax(dim=-1)
+    force_ts = (ts_logprob > max_text)[:, None]
+    return logits.masked_fill(force_ts & ~is_ts_col, NEG_INF)
 
 
 def greedy_rules_argmax(logits: torch.Tensor, *, step: int, last_token, penult_token,

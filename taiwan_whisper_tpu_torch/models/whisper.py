@@ -318,11 +318,16 @@ def _cross_layer(cross_kv: CrossKV, layer: int):
     return cross_kv[0][layer], cross_kv[1][layer]
 
 
-def _cross_attention(q: torch.Tensor, cross_slice, dtype) -> torch.Tensor:
+def _cross_attention(q: torch.Tensor, cross_slice, dtype, beams: int = 1) -> torch.Tensor:
     """q [B, Sq, H, Dh] against one layer's cross K/V [B, H, Dh, T]
     (plain or quantized). 1/sqrt(d) and the K scale fold into q in fp32
     before one cast to the compute dtype; the V scale multiplies the fp32
-    attention output."""
+    attention output. ``beams``: q arrives beam-flat [B*K, Sq, H, Dh]
+    against K/V stored once per item, and the beams fold into the query
+    axis, [B, K*Sq, H, Dh], so every beam reads the same K/V."""
+    if beams > 1:
+        bk, sq, nh, dh = q.shape
+        q = q.reshape(bk // beams, beams * sq, nh, dh)
     scale = q.shape[-1] ** -0.5
     if len(cross_slice) == 4:
         kq, ks, vq, vs = cross_slice
@@ -334,6 +339,8 @@ def _cross_attention(q: torch.Tensor, cross_slice, dtype) -> torch.Tensor:
     att = cross_attention(qs, kq, vq)  # fp32 [B, Sq, H, Dh]
     if vs is not None:
         att = att * vs.permute(0, 3, 1, 2)
+    if beams > 1:
+        att = att.reshape(bk, sq, nh, dh)
     return att.to(dtype)
 
 
@@ -358,9 +365,10 @@ def _cached_self_attn(lp: Params, h: torch.Tensor, cache_k: torch.Tensor,
 def decode_step(params: Params, cross_kv: CrossKV, cache: KVCache,
                 token: torch.Tensor, index: int, config: WhisperConfig,
                 policy: DtypePolicy = DtypePolicy(), *,
-                valid_from: Optional[torch.Tensor] = None) -> torch.Tensor:
+                valid_from: Optional[torch.Tensor] = None, beams: int = 1) -> torch.Tensor:
     """One decoder step for ``token`` ([B] or [B, 1]) at position
-    ``index``; updates ``cache`` in place and returns fp32 logits [B, vocab]."""
+    ``index``; updates ``cache`` in place and returns fp32 logits [B, vocab].
+    ``beams``: rows per cross-K/V item (beam search: B = items x beams)."""
     p = params["decoder"]
     dtype = policy.compute_dtype
     n_heads = config.decoder_attention_heads
@@ -373,7 +381,7 @@ def decode_step(params: Params, cross_kv: CrossKV, cache: KVCache,
                                   n_heads, dtype, valid_from)
         h = _layer_norm(lp["cross_attn_ln"], x)
         q = _split_heads(_dense(lp["cross_attn"]["q"], h), n_heads)
-        att = _cross_attention(q, _cross_layer(cross_kv, i), dtype)
+        att = _cross_attention(q, _cross_layer(cross_kv, i), dtype, beams)
         x = x + _dense(lp["cross_attn"]["out"], _merge_heads(att))
         h = _layer_norm(lp["final_ln"], x)
         x = x + _dense(lp["fc2"], _gelu(_dense(lp["fc1"], h)))
@@ -384,11 +392,12 @@ def decode_step(params: Params, cross_kv: CrossKV, cache: KVCache,
 def prefill(params: Params, cross_kv: CrossKV, cache: KVCache, tokens: torch.Tensor,
             config: WhisperConfig, policy: DtypePolicy = DtypePolicy(), *,
             valid_from: Optional[torch.Tensor] = None,
-            aux_index: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+            aux_index: int = 0, beams: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
     """Run the prompt [B, P] through the decoder in one pass, filling
     cache[..., 0:P] in place. Returns (fp32 logits at the last prompt
     position [B, vocab], fp32 logits at ``aux_index`` [B, vocab] — the
-    no-speech probe at <|startoftranscript|>)."""
+    no-speech probe at <|startoftranscript|>). ``beams`` as in
+    ``decode_step``: the cross kernel then takes K*P query rows an item."""
     p = params["decoder"]
     dtype = policy.compute_dtype
     n_heads = config.decoder_attention_heads
@@ -410,7 +419,7 @@ def prefill(params: Params, cross_kv: CrossKV, cache: KVCache, tokens: torch.Ten
         cache.v[i, ..., :pl_len] = v.permute(0, 2, 3, 1)
         h = _layer_norm(lp["cross_attn_ln"], x)
         q = _split_heads(_dense(lp["cross_attn"]["q"], h), n_heads)
-        att = _cross_attention(q, _cross_layer(cross_kv, i), dtype)
+        att = _cross_attention(q, _cross_layer(cross_kv, i), dtype, beams)
         x = x + _dense(lp["cross_attn"]["out"], _merge_heads(att))
         h = _layer_norm(lp["final_ln"], x)
         x = x + _dense(lp["fc2"], _gelu(_dense(lp["fc1"], h)))

@@ -35,7 +35,8 @@ _SIG = {
     + [_P, _P, _P],
 }
 HEAD_DIM = 64
-MAX_ROWS = 8
+MAX_ROWS = 8  # query rows the cross kernel takes in one tile
+MAX_QUERY_ROWS = MAX_ROWS * 448  # rows per call: tiles of 8 on the kernel's grid
 _CROSS_KV = {torch.bfloat16: (torch.bfloat16, torch.int8, torch.float8_e4m3fn),
              torch.float32: (torch.float32, torch.int8, torch.float8_e4m3fn)}
 
@@ -128,16 +129,17 @@ def cross_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> 
 
 
 def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Cross-attention of 1-8 query rows per (b, h): fp32 [B, R, H, Dh]."""
+    """Cross-attention of R query rows per (b, h), 1 <= R <= ``MAX_QUERY_ROWS``
+    (the kernel runs them in tiles of ``MAX_ROWS``): fp32 [B, R, H, Dh]."""
     if q.device.type == "cpu":
         return cross_attention_plain(q, k, v)
     _build.require_cuda(q, k, v)
     b, r, h, d = q.shape
     t = k.shape[-1]
-    if d != HEAD_DIM or k.shape != (b, h, d, t) or v.shape != k.shape or not 1 <= r <= MAX_ROWS \
-            or t < 1:
-        raise ValueError(f"cross attention takes q [B,1..8,H,64], k/v [B,H,64,T]; got "
-                         f"{tuple(q.shape)} {tuple(k.shape)} {tuple(v.shape)}")
+    if d != HEAD_DIM or k.shape != (b, h, d, t) or v.shape != k.shape \
+            or not 1 <= r <= MAX_QUERY_ROWS or t < 1:
+        raise ValueError(f"cross attention takes q [B,1..{MAX_QUERY_ROWS},H,64], k/v [B,H,64,T]; "
+                         f"got {tuple(q.shape)} {tuple(k.shape)} {tuple(v.shape)}")
     if k.dtype != v.dtype or k.dtype not in _CROSS_KV.get(q.dtype, ()):
         raise ValueError(f"no cross-attention kernel for q {q.dtype}, k/v {k.dtype}/{v.dtype}")
     qs, ks, vs = q.stride(), k.stride(), v.stride()

@@ -11,14 +11,17 @@ the VAD regions of all files feed one queue and are decoded in full
 ``batch_size`` batches (padding rows repeat the last chunk), each batch
 stacked on the wire (int16 by default) and staged ahead on a thread while
 the previous one decodes. A batch is mel (kernel) -> encode -> greedy
-decode; segments scatter back through the stride core-region merge to
-per-file CSVs. Spectral VAD scores on the device go through
-``spectral_regions_device_batch`` so several files share one scorer call.
+decode, or beam search with ``num_beams`` > 1; segments scatter back
+through the stride core-region merge to per-file CSVs. Spectral VAD scores
+on the device go through ``spectral_regions_device_batch`` so several
+files share one scorer call. ``strategy="sequential"`` and
+``pooled=False`` label file by file: ``sequential_decode`` or
+``chunked_decode`` over each VAD region, timestamps shifted back to the
+file's timeline.
 
 ``run_labelling`` also labels a ground-truth split when given one and
 scores the pseudo-labels against it (``validate_labels``: MER, EN-WER,
-ZH-CER). Beam search, sequential decoding, per-file (unpooled) labelling
-and speculative decoding wait for later slices.
+ZH-CER). Speculative decoding waits for a later slice (ROADMAP Queue A 5).
 """
 
 from __future__ import annotations
@@ -38,13 +41,11 @@ import torch
 from ..audio.io import load_audio_16k
 from ..audio.manifest import read_manifest
 from ..audio.mel import SAMPLE_RATE
-from ..decode.greedy import greedy_decode
-from ..decode.longform import LongformResult, _tokens_to_segments, chunk_with_stride
+from ..decode.longform import (LongformResult, _tokens_to_segments, chunk_with_stride,
+                               chunked_decode, decode_audio, sequential_decode)
 from ..decode.rules import DecodeRules
-from ..models import whisper as M
 from ..models.config import DtypePolicy, WhisperConfig, resolve_device
 from ..models.params import prepare_params
-from ..ops.mel_kernel import log_mel
 from ..text.tokenizer import WhisperTokenizer
 from .vad import (_VAD_CALL_SEGS, _VAD_SEG_SAMPLES, detect_speech_regions,
                   resolve_vad_mode, spectral_regions_device_batch)
@@ -57,7 +58,7 @@ READ_ERRORS = (OSError, EOFError, ValueError, wave.Error)
 class LabelConfig:
     language: str = "zh"
     task: str = "transcribe"
-    strategy: str = "chunked"  # sequential waits for a later slice
+    strategy: str = "chunked"  # | "sequential" (per file, temperature ladder)
     batch_size: int = 96  # device batch of pooled 30 s chunks
     # None: derive from the model context (30 s for real Whisper configs;
     # stride chunk/6, the reference's ratio)
@@ -72,9 +73,9 @@ class LabelConfig:
     vad_regions: bool = True
     vad_mode: str = "spectral"
     quantize_kv: object = False  # 0/False off; True/8 int8; "fp8" e4m3
-    num_beams: int = 1  # >1 waits for the beam-search slice
-    # pool chunks across VAD regions and files into full device batches;
-    # False (per-file chunked_decode) waits for the long-form slice
+    num_beams: int = 1  # >1: beam search (the reference labels with beam 5)
+    # chunked strategy: pool chunks across VAD regions and files into full
+    # device batches; False labels file by file through chunked_decode
     pooled: bool = True
     io_threads: int = 2  # host-side load + VAD prefetch workers
     # host -> device audio wire of the chunk path: "int16" is lossless for
@@ -130,14 +131,11 @@ class _ChunkTask:
 
 
 def _check_supported(cfg: LabelConfig):
-    if cfg.num_beams > 1:
-        raise NotImplementedError("num_beams > 1 waits for the beam-search slice")
-    if cfg.strategy != "chunked":
-        raise NotImplementedError(f"strategy={cfg.strategy!r} waits for a later slice")
-    if not cfg.pooled:
+    if cfg.quantize_kv in (4, "8x8"):
         raise NotImplementedError(
-            "pooled=False (per-file chunked_decode) waits for the long-form slice "
-            "(ROADMAP Queue A)")
+            f"quantize_kv={cfg.quantize_kv!r} waits for a later slice (ROADMAP Queue A 4)")
+    if cfg.strategy not in ("chunked", "sequential"):
+        raise ValueError(f"strategy must be chunked or sequential, got {cfg.strategy!r}")
     if cfg.wire_dtype not in ("int16", "float32"):
         raise ValueError(f"wire_dtype must be int16 or float32, got {cfg.wire_dtype!r}")
 
@@ -164,26 +162,16 @@ def _file_to_tasks(file_idx: int, audio: np.ndarray, cfg: LabelConfig, chunk_s: 
     return tasks
 
 
-def decode_audio(params, audio: torch.Tensor, prefix: torch.Tensor, config: WhisperConfig,
-                 rules: DecodeRules, policy: DtypePolicy, *, max_len, quantize_kv, device):
-    """One device batch of fp32 audio [B, N]: log-mel (kernel) -> encode ->
-    greedy decode."""
-    mel = log_mel(audio, config.num_mel_bins)
-    with torch.inference_mode():
-        enc = M.encode(params, mel, config, policy)
-    return greedy_decode(params, enc, prefix, config, rules, policy, max_len=max_len,
-                         quantize_cross_kv=quantize_kv, device=device)
-
-
 def decode_batch(params, wire: torch.Tensor, prefix: torch.Tensor, config: WhisperConfig,
-                 rules: DecodeRules, policy: DtypePolicy, *, max_len, quantize_kv, device):
+                 rules: DecodeRules, policy: DtypePolicy, *, max_len, quantize_kv,
+                 num_beams: int = 1, device):
     """One staged batch: int16 (or fp32) wire -> fp32 audio on the device ->
     ``decode_audio``."""
     audio = wire.to(device, non_blocking=True).float()
     if wire.dtype == torch.int16:
         audio = audio / 32768.0
     return decode_audio(params, audio, prefix, config, rules, policy, max_len=max_len,
-                        quantize_kv=quantize_kv, device=device)
+                        quantize_kv=quantize_kv, num_beams=num_beams, device=device)
 
 
 def label_files(
@@ -199,13 +187,17 @@ def label_files(
     log_every: int = 10,
 ) -> dict:
     """Transcribe each file to <output_dir>/<stem>.csv; returns stats. Runs
-    on ``device`` (cuda unless given). The transport follows
-    ``cfg.wire_mode`` as in the JAX package: resident when asked, or under
-    "auto" when the VAD mode allows it; a resident request with another VAD
-    mode raises."""
+    on ``device`` (cuda unless given). The chunked strategy with pooling
+    follows ``cfg.wire_mode`` as in the JAX package: resident when asked, or
+    under "auto" when the VAD mode allows it; a resident request with
+    another VAD mode raises. The sequential strategy, or ``pooled=False``,
+    labels file by file."""
     dev = resolve_device(device)
     _check_supported(cfg)
     os.makedirs(output_dir, exist_ok=True)
+    if cfg.strategy != "chunked" or not cfg.pooled:
+        return _label_files_per_file(params, config, tok, audio_paths, output_dir, cfg, policy,
+                                     device=dev, log_every=log_every)
     resident_ok = (cfg.wire_mode in ("auto", "resident")
                    and (not cfg.vad_regions
                         or cfg.vad_mode in ("spectral", "spectral-device", "off")))
@@ -277,7 +269,7 @@ def _label_files_pooled(params, config: WhisperConfig, tok: WhisperTokenizer,
         stats["stage_wait_s"] += time.perf_counter() - tw
         td = time.perf_counter()
         res = decode_batch(params, wire, prefix, config, rules, policy, max_len=max_len,
-                           quantize_kv=cfg.quantize_kv, device=dev)
+                           quantize_kv=cfg.quantize_kv, num_beams=cfg.num_beams, device=dev)
         tokens = res.tokens.cpu().numpy()
         lengths = res.lengths.cpu().numpy()
         stats["decode_s"] += time.perf_counter() - td
@@ -405,6 +397,67 @@ def _label_files_pooled(params, config: WhisperConfig, tok: WhisperTokenizer,
         raise RuntimeError(f"unfinished files: {sorted(states)}")
     stats["wall_seconds"] = time.time() - t0
     stats["device"] = str(dev)
+    return stats
+
+
+def _label_files_per_file(params, config: WhisperConfig, tok: WhisperTokenizer,
+                          audio_paths: Sequence[str], output_dir: str, cfg: LabelConfig,
+                          policy: DtypePolicy, *, device: torch.device, log_every: int) -> dict:
+    """One file at a time: each VAD region (or the whole file) through
+    ``chunked_decode`` or ``sequential_decode``, its segments shifted back
+    by the region's start and the file's segments sorted by start. A file
+    below the energy threshold gets an empty CSV and is not counted; an
+    unreadable file is skipped and counted in ``failed``."""
+    params = prepare_params(params, policy, device)
+    stats = dict(files=0, skipped=0, failed=0, audio_seconds=0.0)
+    t0 = time.time()
+
+    def decode_span(span: np.ndarray) -> LongformResult:
+        if cfg.strategy == "chunked":
+            return chunked_decode(params, span, config, tok, policy, language=cfg.language,
+                                  task=cfg.task, batch_size=cfg.batch_size, chunk_s=cfg.chunk_s,
+                                  stride_s=cfg.stride_s, quantize_cross_kv=cfg.quantize_kv,
+                                  num_beams=cfg.num_beams,
+                                  max_decode_tokens=cfg.max_decode_tokens, device=device)
+        return sequential_decode(params, span, config, tok, policy, language=cfg.language,
+                                 task=cfg.task, quantize_cross_kv=cfg.quantize_kv,
+                                 num_beams=cfg.num_beams, device=device)
+
+    for path in audio_paths:
+        stem = os.path.splitext(os.path.basename(path))[0]
+        out_csv = os.path.join(output_dir, f"{stem}.csv")
+        if os.path.exists(out_csv):  # resumable
+            stats["skipped"] += 1
+            continue
+        try:
+            audio = load_audio_16k(path)
+        except READ_ERRORS as e:
+            print(f"[label] failed to read {path}: {e}")
+            stats["failed"] += 1
+            continue
+        if not energy_vad_is_speech(audio, cfg.energy_vad_threshold):
+            write_label_csv(out_csv, LongformResult(segments=[]), tok)
+            continue
+        if cfg.vad_regions and cfg.vad_mode != "off":
+            segs = []
+            for a, b in detect_speech_regions(audio, cfg.vad_mode, device):
+                r = decode_span(audio[int(a * SAMPLE_RATE): int(b * SAMPLE_RATE)])
+                for s in r.segments:
+                    s.start += a
+                    s.end += a
+                segs.extend(r.segments)
+            segs.sort(key=lambda s: s.start)  # the CSV is in time order
+            res = LongformResult(segments=segs)
+        else:
+            res = decode_span(audio)
+        write_label_csv(out_csv, res, tok)
+        stats["files"] += 1
+        stats["audio_seconds"] += len(audio) / SAMPLE_RATE
+        if log_every and stats["files"] % log_every == 0:
+            rate = stats["audio_seconds"] / max(time.time() - t0, 1e-6)
+            print(f"[label] {stats['files']}/{len(audio_paths)} files, {rate:.1f} audio-s/s")
+    stats["wall_seconds"] = time.time() - t0
+    stats["device"] = str(device)
     return stats
 
 

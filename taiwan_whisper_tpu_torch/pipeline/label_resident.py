@@ -212,7 +212,7 @@ def label_files_resident(
         audio = gather_rows(buf_a, buf_b, starts, valid, chunk_len=chunk_len,
                             l_stream=l_stream)
         return decode_audio(params, audio, prefix, config, rules, policy, max_len=max_len,
-                            quantize_kv=cfg.quantize_kv, device=dev)
+                            quantize_kv=cfg.quantize_kv, num_beams=cfg.num_beams, device=dev)
 
     os.makedirs(output_dir, exist_ok=True)
     stats = dict(files=0, skipped=0, failed=0, audio_seconds=0.0,

@@ -111,6 +111,21 @@ class SpecialTokens:
 
 
 MULTILINGUAL = SpecialTokens()
+MULTILINGUAL_V3 = SpecialTokens(eot=50257, sot=50258, n_languages=100)
+# English-only models (*.en): GPT-2's vocab keeps <|endoftext|> at 50256,
+# so every special sits one lower; sot_sequence(language=None) gives their
+# [sot(, notimestamps)] prefix
+ENGLISH = SpecialTokens(eot=50256, sot=50257, n_languages=99)
+
+
+def special_for_vocab(vocab_size: int) -> SpecialTokens:
+    """The token layout a checkpoint's vocab size implies (51864: *.en,
+    51865: multilingual v1/v2, 51866: the large-v3 family)."""
+    if vocab_size == ENGLISH.vocab_size:
+        return ENGLISH
+    if vocab_size == MULTILINGUAL_V3.vocab_size:
+        return MULTILINGUAL_V3
+    return MULTILINGUAL
 
 
 def frames_to_timestamp_str(n_frames: int) -> str:

@@ -5,12 +5,23 @@
     # one batch of the prefilter's validator (configs/prefilter_base_0.4.args)
     python -m taiwan_whisper_tpu_torch.tools.profile_label --preset base \
         --batch 64 --tokens 445 --quantize 0
+    # one batch of configs/label_large_v2_beam.args (beam 5, int8)
+    python -m taiwan_whisper_tpu_torch.tools.profile_label --batch 8 --quantize 8 \
+        --num_beams 5 [--prompt_tokens 223]
 
 Random bf16 weights from a seed, one batch of 30 s chunks of random audio.
 Times each stage of ``pipeline.label.decode_batch`` with the host clock
 around synchronised work (mel, encode, cross-KV precompute, prefill, the
-greedy loop), then traces a window of decode steps with torch.profiler and
-prints device time by kernel and the device's busy share of the window.
+greedy or beam loop), then traces a window of decode steps with
+torch.profiler and prints device time by kernel and the device's busy
+share of the window. A second trace covers the whole loop (the step, then
+the rules and argmax, or the rules, top-k and cache reorder of beam
+search): the kernels of a run of ``--tokens`` + 8 steps less those of a
+run of ``--tokens``, per step, beside the untraced step time.
+``--num_beams`` K decodes with beam search (the self cache has B x K rows,
+the cross kernel K rows an item a step); ``--prompt_tokens`` P puts a
+prompt of <|startofprev|> and P tokens before the sot sequence, so the
+prefill's cross kernel takes (P + 4) x K rows an item.
 The VAD stage: the device spectral scorer on one call of 8 segments of
 120 s of speech-like audio (``tools/synth_audio.py``, int16 wire), ms per
 call with the copies to and from the card, and the seconds the VAD keeps
@@ -30,6 +41,7 @@ import numpy as np
 import torch
 
 from ..audio.mel import N_SAMPLES
+from ..decode.beam import beam_decode
 from ..decode.greedy import greedy_decode
 from ..decode.rules import DecodeRules
 from ..models import whisper as M
@@ -43,6 +55,9 @@ from .synth_audio import synth_lecture
 
 STEPS_TRACED = 8
 VAD_CALLS = 5
+# the aten ops of the beam loop's cache reorder and top-k (the reorder's
+# strided index_select runs a generic gather kernel no name tells apart)
+PARTS = {"reorder": "aten::index_select", "top_k": "aten::topk"}
 
 
 def vad_stage(dev) -> dict:
@@ -71,12 +86,53 @@ def _timed(fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
+def _device_kernels(prof):
+    """(device ms, count) by kernel name of a trace, its host launch calls,
+    and the device ms under each of ``PARTS``' ops."""
+    avg = prof.key_averages()
+    kernels = {e.key: (e.self_device_time_total / 1e3, e.count) for e in avg
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0}
+    launches = sum(e.count for e in avg if e.device_type == torch.autograd.DeviceType.CPU
+                   and e.key.startswith(("cudaLaunch", "cuLaunch")))
+    ops = {name: sum(e.device_time_total / 1e3 for e in avg if e.key == op)
+           for name, op in PARTS.items()}
+    return kernels, launches, ops
+
+
+def loop_window(decode, budget: int) -> dict:
+    """Per loop step: the kernels of ``decode(budget + STEPS_TRACED)`` less
+    those of ``decode(budget)`` (torch.profiler), the host launch calls, and
+    the untraced wall of the same difference."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    traced, walls = {}, {}
+    for n in (budget, budget + STEPS_TRACED):
+        _, walls[n] = _timed(lambda: decode(n))
+        with torch.profiler.profile(activities=acts) as prof:
+            decode(n)
+            torch.cuda.synchronize()
+        traced[n] = _device_kernels(prof)
+    (small, l0, o0), (big, l1, o1) = traced[budget], traced[budget + STEPS_TRACED]
+    rows = sorted(((ms - small.get(k, (0.0, 0))[0]) / STEPS_TRACED,
+                   (n - small.get(k, (0.0, 0))[1]) / STEPS_TRACED, k)
+                  for k, (ms, n) in big.items())[::-1]
+    step_ms = (walls[budget + STEPS_TRACED] - walls[budget]) / STEPS_TRACED
+    busy = sum(r[0] for r in rows)
+    parts = {name: (o1[name] - o0[name]) / STEPS_TRACED for name in PARTS}
+    return dict(step_ms=step_ms, busy_ms=busy, idle_share=1.0 - busy / step_ms,
+                launch_calls=(l1 - l0) / STEPS_TRACED, parts_ms=parts,
+                kernels=[dict(name=k[:120], ms_per_step=ms, calls_per_step=c)
+                         for ms, c, k in rows[:20]])
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--preset", default="large-v2")
     ap.add_argument("--batch", type=int, default=32)
     ap.add_argument("--tokens", type=int, default=192)
     ap.add_argument("--quantize", default="fp8")
+    ap.add_argument("--num_beams", type=int, default=1)
+    ap.add_argument("--prompt_tokens", type=int, default=0)
     args = ap.parse_args(argv)
     quantize = {"0": 0, "8": 8}.get(args.quantize, args.quantize)
 
@@ -89,11 +145,24 @@ def main(argv=None):
                             pol, dev)
     tok = WhisperTokenizer()
     rules = DecodeRules.from_special(tok.special)
+    k = args.num_beams
     sot = tok.sot_sequence("zh", "transcribe", timestamps=True)
-    prefix = torch.tensor([sot] * args.batch, dtype=torch.int32, device=dev)
+    prompt = []
+    if args.prompt_tokens:
+        draw = np.random.RandomState(0).randint(0, tok.special.eot, args.prompt_tokens)
+        prompt = [tok.special.sot_prev] + draw.tolist()
+    p_len = len(prompt) + len(sot)
+    prefix = torch.tensor([prompt + sot] * args.batch, dtype=torch.int32, device=dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     audio = torch.randn((args.batch, N_SAMPLES), generator=gen, device=dev) * 0.1
-    max_len = len(sot) + args.tokens
+    max_len = p_len + args.tokens
+
+    def decode(enc, budget):
+        kw = dict(max_len=p_len + budget, sot_index=len(prompt), quantize_cross_kv=quantize,
+                  device=dev)
+        if k > 1:
+            return beam_decode(params, enc, prefix, cfg, rules, pol, num_beams=k, **kw)
+        return greedy_decode(params, enc, prefix, cfg, rules, pol, **kw)
 
     def run(budget):
         with torch.inference_mode():
@@ -101,13 +170,13 @@ def main(argv=None):
             enc, t_enc = _timed(lambda: M.encode(params, mel, cfg, pol))
             kv, t_kv = _timed(lambda: M.precompute_cross_kv(params, enc, cfg, pol,
                                                             quantize=quantize))
-            cache = M.init_cache(cfg, args.batch, len(sot) + budget, dtype=pol.compute_dtype,
+            cache = M.init_cache(cfg, args.batch * k, p_len + budget, dtype=pol.compute_dtype,
                                  device=dev)
-            _, t_pre = _timed(lambda: M.prefill(params, kv, cache, prefix, cfg, pol))
+            _, t_pre = _timed(lambda: M.prefill(params, kv, cache,
+                                                prefix.repeat_interleave(k, dim=0), cfg, pol,
+                                                aux_index=len(prompt), beams=k))
             del kv, cache
-            res, t_all = _timed(lambda: greedy_decode(
-                params, enc, prefix, cfg, rules, pol, max_len=len(sot) + budget,
-                quantize_cross_kv=quantize, device=dev))
+            res, t_all = _timed(lambda: decode(enc, budget))
         return res, dict(mel_ms=t_mel, encode_ms=t_enc, cross_kv_ms=t_kv,
                          prefill_ms=t_pre, greedy_decode_ms=t_all)
 
@@ -115,7 +184,7 @@ def main(argv=None):
     _, warmup_ms = _timed(lambda: run(8))
     res, stages = run(args.tokens)
     stages["warmup_ms"] = warmup_ms
-    steps = int(max_len - len(sot))
+    steps = int(max_len - p_len)
     loop_ms = stages["greedy_decode_ms"] - stages["cross_kv_ms"] - stages["prefill_ms"]
     stages["decode_loop_ms"] = loop_ms
     stages["step_ms"] = loop_ms / steps
@@ -127,19 +196,20 @@ def main(argv=None):
     with torch.inference_mode():
         enc = M.encode(params, log_mel(audio, cfg.num_mel_bins), cfg, pol)
         kv = M.precompute_cross_kv(params, enc, cfg, pol, quantize=quantize)
-        cache = M.init_cache(cfg, args.batch, max_len, dtype=pol.compute_dtype, device=dev)
-        M.prefill(params, kv, cache, prefix, cfg, pol)
-        token = prefix[:, -1]
-        for i in range(len(sot), len(sot) + 2):
-            M.decode_step(params, kv, cache, token, i, cfg, pol)
+        cache = M.init_cache(cfg, args.batch * k, max_len, dtype=pol.compute_dtype, device=dev)
+        M.prefill(params, kv, cache, prefix.repeat_interleave(k, dim=0), cfg, pol, beams=k)
+        token = prefix[:, -1].repeat_interleave(k)
+        for i in range(p_len, p_len + 2):
+            M.decode_step(params, kv, cache, token, i, cfg, pol, beams=k)
         torch.cuda.synchronize()
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) as prof:
             t0 = time.perf_counter()
-            for i in range(len(sot) + 2, len(sot) + 2 + STEPS_TRACED):
-                M.decode_step(params, kv, cache, token, i, cfg, pol)
+            for i in range(p_len + 2, p_len + 2 + STEPS_TRACED):
+                M.decode_step(params, kv, cache, token, i, cfg, pol, beams=k)
             torch.cuda.synchronize()
             window_ms = (time.perf_counter() - t0) * 1e3
+        loop = loop_window(lambda n: decode(enc, n), min(args.tokens, 24))
     # device-side events only (kernels, memcpy/memset): the CPU-side aten
     # ops carry the same device time again as their children's
     rows = [(e.self_device_time_total / 1e3, e.count, e.key)
@@ -161,7 +231,16 @@ def main(argv=None):
     for ms, n, name in rows[:20]:
         print(f"  {ms / STEPS_TRACED:9.4f} ms/step  {n // STEPS_TRACED:5d}/step  "
               f"{name[:90]}")
+    print(f"decode loop ({'beam ' + str(k) if k > 1 else 'greedy'}, positions "
+          f"{min(args.tokens, 24)}-{min(args.tokens, 24) + STEPS_TRACED - 1} past the prefix): "
+          f"{loop['step_ms']:.3f} ms a step untraced, device busy {loop['busy_ms']:.3f} ms "
+          f"(idle {100 * loop['idle_share']:.1f}%), {loop['launch_calls']:.1f} launch calls; "
+          + ", ".join(f"{n} {ms:.4f} ms" for n, ms in loop["parts_ms"].items()))
+    for row in loop["kernels"]:
+        print(f"  {row['ms_per_step']:9.4f} ms/step  {row['calls_per_step']:7.1f}/step  "
+              f"{row['name'][:90]}")
     print(json.dumps({"card": card, "preset": args.preset, "batch": args.batch,
+                      "num_beams": k, "prompt_tokens": args.prompt_tokens, "loop": loop,
                       "tokens": args.tokens, "quantize": args.quantize, "stages": stages,
                       "window_steps": STEPS_TRACED, "window_ms": window_ms,
                       "device_busy_ms": busy_ms,

@@ -8,6 +8,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -96,6 +97,38 @@ def test_train_entry_points_default_to_cuda_and_raise(no_cuda, argv):
     raise before reading anything when CUDA is missing."""
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.main(argv)
+
+
+def _decode_calls():
+    from taiwan_whisper_tpu_torch.decode.beam import beam_decode
+    from taiwan_whisper_tpu_torch.decode.longform import chunked_decode, sequential_decode
+    from taiwan_whisper_tpu_torch.pipeline.evaluate import evaluate_manifest
+
+    cfg = WhisperConfig(vocab_size=MULTILINGUAL.vocab_size, d_model=64, ffn_dim=128,
+                        encoder_layers=1, decoder_layers=1, encoder_attention_heads=4,
+                        decoder_attention_heads=4, max_source_positions=60,
+                        max_target_positions=48)
+    rules, tok, audio = DecodeRules.from_special(MULTILINGUAL), WhisperTokenizer(), \
+        np.zeros(16000, np.float32)
+    return {
+        "beam_decode": lambda: beam_decode({}, torch.zeros(1, 60, 64),
+                                           torch.zeros(1, 3, dtype=torch.int32), cfg, rules),
+        "sequential_decode": lambda: sequential_decode({}, audio, cfg, tok),
+        "chunked_decode": lambda: chunked_decode({}, audio, cfg, tok),
+        "evaluate_manifest": lambda: evaluate_manifest({}, cfg, tok, "m.tsv"),
+        "cli evaluate": lambda: cli.main(["evaluate", "--manifest", "m.tsv", "--model", "t"]),
+        "cli transcribe": lambda: cli.main(["transcribe", "--audio", "a.wav", "--model", "t",
+                                            "--output_dir", "o"]),
+    }
+
+
+@pytest.mark.parametrize("name", ["beam_decode", "sequential_decode", "chunked_decode",
+                                  "evaluate_manifest", "cli evaluate", "cli transcribe"])
+def test_decode_entry_points_default_to_cuda_and_raise(no_cuda, name):
+    """Beam search, long-form decoding, evaluation and transcription run on
+    cuda unless told cpu, and raise before reading anything without CUDA."""
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        _decode_calls()[name]()
 
 
 @pytest.mark.parametrize("call", [

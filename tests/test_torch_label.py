@@ -1,7 +1,9 @@
 """The port's labelling slice end to end on the CPU: ``label_files`` and
 ``cli label`` of taiwan_whisper_tpu_torch against the JAX package's pooled
 chunk path (VAD off, fp32 policy, the same weights through
-``from_jax_params``) must write byte-identical CSVs."""
+``from_jax_params``) must write byte-identical CSVs; so must the shipped
+args as the JAX CLI runs them, greedy, beam (``label_large_v2_beam.args``),
+``--strategy sequential`` and ``--no_pooled``."""
 
 import json
 import os
@@ -124,13 +126,24 @@ def test_cli_label_matches_label_files(tmp_path, corpus, weights):
     assert _read_csvs(cli_dir) == _read_csvs(lib_dir)
 
 
-@pytest.mark.parametrize("kw", [dict(num_beams=2), dict(strategy="sequential"),
-                                dict(pooled=False)])
+@pytest.mark.parametrize("kw", [dict(quantize_kv=4), dict(quantize_kv="8x8")])
 def test_unported_label_options_raise(tmp_path, weights, kw):
+    """Cross-KV storage that waits for a later slice (int4 and "8x8":
+    ROADMAP Queue A 4) raises before any file is read."""
     _, _, params, cfg = weights
     with pytest.raises(NotImplementedError):
         label_files(params, cfg, WhisperTokenizer(), [], str(tmp_path),
                     LabelConfig(**kw), device="cpu")
+
+
+@pytest.mark.parametrize("flag", [["--assistant", "draft"], ["--distributed"]])
+def test_cli_label_refuses_unported_flags(tmp_path, flag):
+    """Label's speculative route (``--assistant``: ROADMAP Queue A 5) and
+    ``--distributed`` raise, naming the flag, before any file is read."""
+    with pytest.raises(NotImplementedError, match=flag[0]):
+        port_cli.main(["label", "--manifest", str(tmp_path / "none.tsv"),
+                       "--model", str(tmp_path / "none"), "--output_dir", str(tmp_path),
+                       "--device", "cpu"] + flag)
 
 
 def test_cli_label_shipped_args_matches_jax_cli(tmp_path, corpus, weights, monkeypatch):
@@ -224,3 +237,65 @@ def test_cli_label_validation_manifest_matches_jax_cli(tmp_path, corpus, weights
         got = _read_csvs(str(tmp_path / "port" / sub))
         assert got == _read_csvs(str(tmp_path / "jax" / sub))
         assert len(got) == (3 if sub else 2)
+
+
+@pytest.mark.parametrize("args_file,extra", [
+    ("label_large_v2_beam.args", []),
+    ("label_large_v2.args", ["--strategy", "sequential"]),
+    ("label_large_v2.args", ["--no_pooled"]),
+], ids=["beam_args", "sequential", "no_pooled"])
+def test_cli_label_long_form_routes_match_jax_cli(tmp_path, corpus, monkeypatch, args_file,
+                                                  extra):
+    """``cli label @configs/label_large_v2_beam.args`` (beam 5, int8 cross-KV,
+    b8: the resident route with beam search), and the shipped args with
+    ``--strategy sequential`` or ``--no_pooled`` (file by file over the
+    spectral VAD's regions), on FLAC lectures with a tiny checkpoint of
+    30 s windows: at the fp32 policy the port writes the JAX CLI's CSVs.
+    Random weights fail the logprob threshold, so the sequential ladder
+    samples: both samplers are patched to argmax."""
+    import jax
+    import jax.numpy as jnp
+
+    from taiwan_whisper_tpu import cli as jax_cli
+    from taiwan_whisper_tpu.models.io import save_hf_checkpoint as jax_save
+    from taiwan_whisper_tpu.pipeline import label as jax_label
+    from taiwan_whisper_tpu_torch.audio.io import write_flac
+    from taiwan_whisper_tpu_torch.audio.manifest import Manifest, write_manifest
+    from taiwan_whisper_tpu_torch.decode import greedy as port_greedy
+    from taiwan_whisper_tpu_torch.pipeline import label as port_label
+    from taiwan_whisper_tpu_torch.tools.synth_audio import synth_lecture
+
+    jcfg = JaxConfig(**dict(TINY, max_source_positions=1500, max_target_positions=40))
+    model_dir = str(tmp_path / "model")
+    jax_save(model_dir, jax_init_params(jcfg, seed=0), jcfg)
+    audio_dir = tmp_path / "flac"
+    audio_dir.mkdir()
+    rng = np.random.RandomState(3)
+    names = []
+    for i, secs in enumerate((12.0, 20.0)):
+        names.append(f"f{i}.flac")
+        write_flac(str(audio_dir / names[-1]), synth_lecture(rng, secs))
+    manifest = str(tmp_path / "m.tsv")
+    write_manifest(manifest, Manifest(root=str(audio_dir), paths=names))
+    args = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "configs", args_file)
+    common = ["label", f"@{args}", "--manifest", manifest, "--model", model_dir,
+              "--tokenizer_dir", str(corpus / "tok"), *extra]
+    monkeypatch.setattr(jax_label.label_files, "__defaults__",
+                        (JaxLabelConfig(), JaxPolicy.fp32()))
+    monkeypatch.setitem(port_label.run_labelling.__kwdefaults__, "policy",
+                        DtypePolicy.fp32())
+    monkeypatch.setattr(jax.random, "categorical",
+                        lambda key, logits, axis=-1: jnp.argmax(logits, axis=axis)
+                        .astype(jnp.int32))
+    monkeypatch.setattr(port_greedy, "_sample",
+                        lambda masked, temperature, generator: torch.argmax(
+                            masked / temperature, dim=-1))
+    jax_stats = jax_cli.main(common + ["--output_dir", str(tmp_path / "jax")])
+    stats = port_cli.main(common + ["--output_dir", str(tmp_path / "port"), "--device", "cpu"])
+    assert stats["files"] == jax_stats["files"] == 2 and stats["device"] == "cpu"
+    assert ("groups" in stats) == (args_file == "label_large_v2_beam.args")  # resident route
+    port_csvs = _read_csvs(str(tmp_path / "port"))
+    assert set(port_csvs) == {"f0.csv", "f1.csv"}
+    assert all(csv.count(b"\n") > 2 for csv in port_csvs.values())  # segments were decoded
+    assert port_csvs == _read_csvs(str(tmp_path / "jax"))

@@ -180,3 +180,50 @@ def test_mer_refused_options_raise_as_jax(kw, error, lexicons):
     for m in (JAX, PORT):
         with pytest.raises(error):
             m.metrics.MixErrorRate(**kw)
+
+
+SRT = ("1\n00:00:01,000 --> 00:00:03,500\n你好 world\n\n"
+       "2\n00:00:04,000 --> 00:00:06,000\nsecond line\nwrapped text\n\n\n"
+       "3\n0:00:07.250 --> 00:00:09,000\n  跨 model 測試  \n")
+VTT = ("WEBVTT\n\n00:00:01.000 --> 00:00:03.000\nhello\n\n"
+       "00:04.000 --> 00:06.500\n再見\n\nNOTE x\n\n00:07.000 --> 00:12.000\nlong\n")
+
+
+@pytest.mark.parametrize("case", ["timecodes", "read_srt", "read_vtt", "cut_cue_pairs",
+                                  "writers", "build_test_set"])
+def test_subtitles_match_jax(case, tmp_path):
+    """text/subtitles.py (a copy of the JAX module): readers, the cue cutter,
+    the test-set builder and the srt/vtt writers give the JAX module's
+    values and bytes."""
+    from taiwan_whisper_tpu.audio.io import write_wav
+    from taiwan_whisper_tpu.text import subtitles as jax_sub
+    from taiwan_whisper_tpu_torch.text import subtitles as port_sub
+
+    (tmp_path / "a.srt").write_text(SRT, encoding="utf-8")
+    (tmp_path / "a.vtt").write_text(VTT, encoding="utf-8")
+    audio = np.random.RandomState(0).randn(16000 * 10).astype(np.float32) * 0.1
+
+    def run(mod, out):
+        if case == "timecodes":
+            return [mod.timecode_to_seconds(t) for t in
+                    ("00:01:02.500", "01:02.5", "5.25", "1:00:00,125")]
+        if case in ("read_srt", "read_vtt"):
+            return [dataclasses.astuple(c) for c in
+                    getattr(mod, case)(str(tmp_path / f"a.{case[-3:]}"))]
+        cues = [mod.Cue(1.0, 2.0, "a"), mod.Cue(8.0, 12.0, "overruns"),
+                mod.Cue(3.0, 2.0, "bad"), mod.Cue(61.25, 3661.004, "跨 model 測試")]
+        if case == "cut_cue_pairs":
+            return [(a.tolist(), t) for a, t in mod.cut_cue_pairs(audio, cues)]
+        out.mkdir()
+        if case == "writers":
+            mod.write_srt(str(out / "c.srt"), cues)
+            mod.write_vtt(str(out / "c.vtt"), cues)
+        else:
+            write_wav(str(tmp_path / "lec.wav"), audio)
+            rels = mod.build_test_set(str(tmp_path / "lec.wav"), str(tmp_path / "a.srt"),
+                                      str(out), audio_format="wav")
+            assert rels
+        return {str(p.relative_to(out)): p.read_bytes() for p in sorted(out.rglob("*"))
+                if p.is_file()}
+
+    assert run(port_sub, tmp_path / "port") == run(jax_sub, tmp_path / "jax")
