@@ -3,8 +3,8 @@
     python3 chip_smoke.py            # every phase, as a release check runs it
     python3 chip_smoke.py kernels    # only the named phases
                                      # (kernels, label, label_vad, label_beam, longform,
-                                     # prefilter, train, train_agree, agree; mel,
-                                     # layer_norm: those kernels' main cases)
+                                     # speculative, prefilter, train, train_agree, agree;
+                                     # mel, layer_norm: those kernels' main cases)
 
 Phases, each raising on failure:
 
@@ -47,15 +47,25 @@ Phases, each raising on failure:
    batch 8, timed as above beside SDPA over the dequantized K/V and an
    einsum, and the label path's 1- and 3-row calls bitwise equal to the
    same rows of a 15-row call; the self kernel at the beam path's 40 rows
-   (batch 8 x 5 beams). The smoke holds no older kernel, so it cannot
-   compare with one: ``tools/ab_cross_kernel.py --parent DIR`` builds the
-   cross kernel of another checkout and checks those calls bitwise
-   against it.
+   (batch 8 x 5 beams). Packed int4 storage (two positions a byte) at the
+   label path's 1 and 3 rows (b32, bf16 q; timed with a bitwise rerun),
+   the agree phase's (fp32 q), the tile cases' 5-1135 rows at b8, and its
+   1- and 3-row calls bitwise against a 15-row call at b32; the "8x8"
+   variant (int8 x int8 dots) at b32 x 1 row and b8 x 5 rows, each output
+   held to 4 steps of p8 of its row (max|V x scale| x pmax / 127, pmax
+   the row's largest probability) and at most 1% of the rows off by more
+   than 1e-6; and the 6-row,
+   batch-1 bf16 call ``extend`` makes at large-v2. The smoke holds no
+   older kernel, so it cannot compare with one:
+   ``tools/ab_cross_kernel.py --parent DIR`` builds the cross kernel of
+   another checkout and checks those calls bitwise against it.
 3. label   — the port's ``cli label`` at full large-v2 width with random
    bf16 weights from a seed: 8 synthetic WAVs of 170 s (64 chunks, two
    batches of 32), fp8 cross-KV, VAD off, the staged chunk route, 192-token
-   budget. Every launch counter is zeroed just before and read just after,
-   and must equal the count this run implies.
+   budget; then the same run with ``--quantize_kv 4`` (packed int4), the
+   two runs' audio-s/s side by side. Every launch counter is zeroed just
+   before each run and read just after, and must equal the count the run
+   implies.
 4. label_vad — on 8 FLAC files of 170 s of speech-like lecture audio
    (bursts between silent gaps), first the device VAD scorer on the card
    against the same scorer on the CPU, on the corpus's int16 segments:
@@ -83,6 +93,13 @@ Phases, each raising on failure:
    ``sequential_decode(temperatures=(0.0,))`` greedy and beam 5, which must
    run a conditioned prefill of more than 8 rows; every run's counters
    must show mel, encoder attention, cross and self launches.
+4d. speculative — the 32-2 student drafts, the random large-v2 verifies:
+   ``cli evaluate @configs/eval_speculative.args`` on 1 utterance (448
+   positions; a second took the phase past its 90 s) and ``cli label @configs/label_large_v2.args
+   --assistant`` on 2 FLAC lectures of 60 s with a 64-token budget; rounds,
+   draft accept rate, RTF and audio-s/s of each; the counters must show
+   mel, encoder attention, self attention and the cross kernel at 1 row
+   (the student's steps) and 6 rows (``extend``).
 5. prefilter — stage 2 on the port's CLI: ``cli segment`` of 8 FLAC
    lectures of 260 s with seeded pseudo-label CSVs (72 segments), ``cli
    make-manifest --valid_percent 0.1``, then ``cli prefilter
@@ -119,7 +136,11 @@ Phases, each raising on failure:
    just before the card's run, must equal the count that run implies.
    Then beam search with 5 beams on the same inputs: all hypotheses'
    tokens agree on at least 0.98 of positions, and the counters fit the
-   steps run.
+   steps run. Then greedy with int4 and with "8x8" cross K/V, card vs CPU
+   (0.98 each), and ``speculative_decode`` (first utterance, 64 tokens)
+   against the card's teacher greedy: with a 2-layer distilled student and
+   with the teacher drafting for itself (accept rate above 0.9), at fp32
+   (0.98) and, logged only, at bf16.
 
 Prints the card's name and power limit, a ``kernels`` JSON line (one entry
 per kernel case; ``launches`` is its kernel's count over all the driven
@@ -145,7 +166,7 @@ import numpy as np
 
 # H100 SXM data-sheet peaks (dense): bytes/s of HBM3, flop/s by operand type
 PEAK_BYTES_S = 3.35e12
-PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
+PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12, "int8": 1979e12}
 
 LARGE_V2_BATCH = 32
 # the prefilter phase: configs/prefilter_base_0.4.args validates at batch 64
@@ -170,6 +191,11 @@ TILE_ROWS = (5, 15, 227, 1135)
 # the long-form phase: 2 test utterances (evaluate), one lecture (transcribe)
 # and a longer one for sequential_decode's prompts, which grow window by window
 LONGFORM_UTTS, LONGFORM_LECTURE_S, LONGFORM_PROMPT_S = 2, 50.0, 120.0
+# the speculative phase (within 90 s): cli evaluate
+# @configs/eval_speculative.args on 1 utterance (445 tokens with random
+# weights, ~23 s), cli label --assistant on 2 FLAC lectures of 60 s with a
+# 64-token budget; speculative_decode takes k = 5 drafts by default
+SPEC_UTTS, SPEC_FILES, SPEC_SECONDS, SPEC_TOKENS, DRAFTS = 1, 2, 60.0, 64, 5
 FINETUNE_BATCH = 8
 DISTILL_STEPS, FINETUNE_STEPS = 6, 5
 CARD_BYTES = 76e9  # what a run may plan to hold of the card's 80 GB
@@ -195,8 +221,11 @@ COUNTER_OF = {"log_mel": "mel"}
 
 
 def zero_counters():
+    from taiwan_whisper_tpu_torch.ops import decode_attention
+
     for fn in kernel_counters().values():
         fn.launches = 0
+    decode_attention.cross_attention.launches_by_rows = {}
 
 
 def read_counters():
@@ -394,13 +423,22 @@ CROSS_REP = "taiwan_whisper_tpu/ops/decode_attention.py:69"
 SELF_REP = "taiwan_whisper_tpu/ops/decode_attention.py:132"
 
 
-def cross_bound(q, k):
-    """Cross attention moves K and V once, q in and fp32 out; 4 flop per
-    K/V element and query row."""
+def cross_bound(q, k, kind=None):
+    """Cross attention moves K and V once (packed int4: half a byte a
+    position), q in and fp32 out; 4 operations per K/V position, d and
+    query row, at q's type (``kind``: the "8x8" variant's int8)."""
     b, r, h, d = q.shape
+    t = k.shape[-1] * (2 if str(k.dtype) == "torch.uint8" else 1)
     return bound_ms(2 * k.numel() * k.element_size() + q.numel() * q.element_size()
-                    + b * r * h * d * 4, 4 * b * h * r * k.shape[-1] * d,
-                    "bf16" if q.dtype.itemsize == 2 else "fp32")
+                    + b * r * h * d * 4, 4 * b * h * r * t * d,
+                    kind or ("bf16" if q.dtype.itemsize == 2 else "fp32"))
+
+
+def dequantized(DA, kq, dtype):
+    """Stored K/V as ``dtype`` (packed int4 unpacked), the scale folded out."""
+    if str(kq.dtype) == "torch.uint8":
+        return DA.unpack_int4(kq, 2 * kq.shape[-1]).to(dtype)
+    return kq.to(dtype)
 
 
 def self_bound(q, index, vf):
@@ -434,26 +472,30 @@ def self_sdpa(torch, q, ck, cv, k_t, v_t, index, vf):
 def cross_tile_cases(torch, DA, checks, record, g, flush, dev):
     """The cross kernel past one tile of 8 query rows, at large-v2 heads and
     the beam config's batch 8: ``TILE_ROWS`` rows on int8 storage (the beam
-    config's cross-KV) and on bf16, against the plain version with the
-    1e-3 tolerance of the 1- and 3-row cases (fp32 output from the same
-    inputs; a bf16 rounding of a probability may differ). Each case is
-    timed flushed, back to back, per kernel and on the host, with a bitwise
-    rerun, beside the plain version, SDPA over the (dequantized, for int8)
-    bf16 K/V (library_ms; the dequantizing cast not counted) and an einsum
-    of the dequantized K/V (logged). Then the label path's 1- and 3-row
-    calls (fp8, batch 32), which run the one-tile code as before, bitwise
-    against the same rows inside a 15-row call: a tile computes its rows
-    exactly as a call of those rows alone."""
+    config's cross-KV), on packed int4 and on bf16, against the plain
+    version with the 1e-3 tolerance of the 1- and 3-row cases (fp32 output
+    from the same inputs; a bf16 rounding of a probability may differ).
+    Each case is timed flushed, back to back, per kernel and on the host,
+    with a bitwise rerun, beside the plain version, SDPA over the
+    (dequantized, for int8 and int4) bf16 K/V (library_ms; the dequantizing
+    cast not counted) and an einsum of the dequantized K/V (logged). Then
+    the label path's 1- and 3-row calls (fp8 and int4, batch 32), which run
+    the one-tile code as before, bitwise against the same rows inside a
+    15-row call: a tile computes its rows exactly as a call of those rows
+    alone."""
     import torch.nn.functional as F
 
     D, T, H, b, bf16 = 64, 1500, 20, BEAM_BATCH, torch.bfloat16
     base = torch.randn((b, H, D, T), generator=g, device=dev)
     int8 = torch.randint(-127, 128, base.shape, generator=g, device=dev, dtype=torch.int8)
-    stores = {"int8": (int8, int8, 0.002, 1 / 127),
+    int4 = DA.pack_int4(torch.randint(-7, 8, base.shape, generator=g, device=dev,
+                                      dtype=torch.int8))
+    stores = {"int8": (int8, int8, 0.002, 1 / 127), "int4": (int4, int4, 0.036, 1 / 7),
               "bf16": (base.to(bf16), (base * 0.5).to(bf16), 0.125, 1.0)}
     for store, (kq, vq, q_scale, v_scale) in stores.items():
         kq, vq = DA.time_minor_copy(kq), DA.time_minor_copy(vq)
-        kd, vd = kq.to(bf16), vq.to(bf16)  # the dequantized K/V (its scale folds out)
+        # the dequantized K/V (its scale folds out)
+        kd, vd = dequantized(DA, kq, bf16), dequantized(DA, vq, bf16)
         kh, vh = kd.transpose(-1, -2), vd.transpose(-1, -2)
         for rows in TILE_ROWS:
             qs = (torch.randn((b, rows, H, D), generator=g, device=dev) * q_scale).to(bf16)
@@ -468,31 +510,127 @@ def cross_tile_cases(torch, DA, checks, record, g, flush, dev):
                 return torch.einsum("bhqt,bhdt->bqhd", probs.to(bf16), vd)
 
             record(key, "cross_decode_attention", DECODE_SRC, CROSS_REP,
-                   DA.cross_attention(qs, kq, vq) * v_scale,
-                   DA.cross_attention_plain(qs, kq, vq) * v_scale, 1e-3,
-                   time_ms(lambda: DA.cross_attention(qs, kq, vq), torch, flush=flush),
-                   time_ms(lambda: DA.cross_attention_plain(qs, kq, vq), torch, iters=5,
+                   DA.cross_attention(qs, kq, vq, T) * v_scale,
+                   DA.cross_attention_plain(qs, kq, vq, T) * v_scale, 1e-3,
+                   time_ms(lambda: DA.cross_attention(qs, kq, vq, T), torch, flush=flush),
+                   time_ms(lambda: DA.cross_attention_plain(qs, kq, vq, T), torch, iters=5,
                            flush=flush),
                    cross_bound(qs, kq), time_ms(sdpa, torch, flush=flush))
             einsum_ms = time_ms(einsum, torch, flush=flush)
             log(f"[kernel] {key} einsum of the dequantized K/V {einsum_ms:.4f} ms flushed")
             checks.append(dict(check=f"{key} einsum", einsum_ms=einsum_ms))
-            device_times(key, lambda: DA.cross_attention(qs, kq, vq), sdpa, torch, checks,
+            device_times(key, lambda: DA.cross_attention(qs, kq, vq, T), sdpa, torch, checks,
                          host=True)
     B = LARGE_V2_BATCH
     base = torch.randn((B, H, D, T), generator=g, device=dev)
-    kq = DA.time_minor_copy((base * 50).to(torch.float8_e4m3fn))
-    vq = DA.time_minor_copy((base * 25).to(torch.float8_e4m3fn))
-    q15 = (torch.randn((B, 15, H, D), generator=g, device=dev) * 0.0025).to(bf16)
-    out15 = DA.cross_attention(q15, kq, vq)
-    same = {f"rows {r.start}-{r.stop - 1}": torch.equal(
-        DA.cross_attention(q15[:, r].contiguous(), kq, vq), out15[:, r])
-        for r in (slice(0, 1), slice(0, 3), slice(8, 11))}
-    log(f"[kernel] cross fp8 B={B}: 1- and 3-row calls bitwise equal to the same rows of a "
-        f"15-row call: {same}")
-    checks.append(dict(check="cross_attention tiles bitwise", **same))
-    if not all(same.values()):
-        raise AssertionError(f"the cross kernel's tiles differ from calls of their rows: {same}")
+    i4 = torch.randint(-7, 8, base.shape, generator=g, device=dev, dtype=torch.int8)
+    for store, (k, v, q_scale) in {
+            "fp8": ((base * 50).to(torch.float8_e4m3fn), (base * 25).to(torch.float8_e4m3fn),
+                    0.0025),
+            "int4": (DA.pack_int4(i4), DA.pack_int4(i4.flip(-1)), 0.036)}.items():
+        kq, vq = DA.time_minor_copy(k), DA.time_minor_copy(v)
+        q15 = (torch.randn((B, 15, H, D), generator=g, device=dev) * q_scale).to(bf16)
+        out15 = DA.cross_attention(q15, kq, vq, T)
+        same = {f"rows {r.start}-{r.stop - 1}": torch.equal(
+            DA.cross_attention(q15[:, r].contiguous(), kq, vq, T), out15[:, r])
+            for r in (slice(0, 1), slice(0, 3), slice(8, 11))}
+        log(f"[kernel] cross {store} B={B}: 1- and 3-row calls bitwise equal to the same rows "
+            f"of a 15-row call: {same}")
+        checks.append(dict(check=f"cross_attention tiles bitwise[{store}]", **same))
+        if not all(same.values()):
+            raise AssertionError(f"the cross kernel's tiles differ from calls of their rows "
+                                 f"({store}): {same}")
+
+
+def int8_dots_cases(torch, DA, checks, record, g, flush, dev):
+    """The cross kernel's "8x8" variant (fp32 q quantized to int8 per row,
+    int8 x int8 scores and P V with int8 probabilities) on int8 storage at
+    the greedy path's shape (large-v2, batch 32, 1 row) and the beam path's
+    (batch 8, 5 rows), against its plain version (the JAX formula in torch,
+    the integer sums exact in fp64). The integer products are exact on both
+    sides, so they differ only where a probability lands within an fp32 ulp
+    of a rounding boundary of p8 and rounds the other way: one such flip
+    moves an output of row (b, r, h) by at most max|V x scale| x pmax / 127,
+    with pmax that row's largest probability in the plain version (about
+    1e-2 over these 1500 fairly flat positions) and the V maximum taken per
+    (b, h). Each output is held to 4 such steps of its own row, and at most
+    1% of the (b, r, h) rows may hold an output more than 1e-6 from the
+    plain version (a flip moves a row by ~1e-5 or more; every earlier run
+    read a largest error under 6e-8). A kernel that floors p8 instead of
+    rounding it errs by ~15 steps in a typical row and fails both. Timed as
+    the other cases, SDPA over the dequantized bf16 K/V as the library."""
+    import torch.nn.functional as F
+
+    D, T, H = 64, 1500, 20
+    for b, rows in ((LARGE_V2_BATCH, 1), (BEAM_BATCH, BEAMS)):
+        kq, vq = (DA.time_minor_copy(torch.randint(-127, 128, (b, H, D, T), generator=g,
+                                                   device=dev, dtype=torch.int8))
+                  for _ in range(2))
+        v_scale = 1 / 127
+        q = torch.randn((b, rows, H, D), generator=g, device=dev) * 0.002
+        kh, vh = (dequantized(DA, x, torch.bfloat16).transpose(-1, -2) for x in (kq, vq))
+        qh = q.to(torch.bfloat16).transpose(1, 2)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qh, kh, vh, scale=1.0)
+
+        got = DA.cross_attention_int8_dots(q, kq, vq) * v_scale
+        ref = DA.cross_attention_int8_dots_plain(q, kq, vq) * v_scale
+        # one p8 step of each row [b, r, h, 1], from the plain version's pmax
+        q8, qmax = DA.quantize_rows_int8(q)
+        logits = (torch.einsum("bqhd,bhdt->bhqt", q8.double(), kq.double()).float()
+                  * (qmax / 127.0).permute(0, 2, 1, 3))
+        pmax = torch.softmax(logits, dim=-1).amax(dim=-1) + 1e-12  # [b, h, r]
+        vmax = vq.float().abs().amax(dim=(-2, -1)) * v_scale  # [b, h]
+        step = (vmax[:, :, None] * pmax / 127).permute(0, 2, 1)[..., None]
+        diff = (got - ref).abs()
+        worst = float((diff / step).max())
+        rows_off = int((diff > 1e-6).any(dim=-1).sum())
+        n_rows = b * rows * H
+        key = f"cross_attention[8x8,rows={rows},B={b}]"
+        log(f"[kernel] {key}: largest error {worst:.3g} p8 steps of its row (limit 4; one "
+            f"step {float(step.min()):.3g} to {float(step.max()):.3g}); {rows_off} of {n_rows} "
+            f"rows hold an output more than 1e-6 from the plain version (limit {n_rows // 100})")
+        checks.append(dict(check=f"{key} p8 steps", worst_steps=worst, rows_off=rows_off,
+                           rows=n_rows, step_min=float(step.min()), step_max=float(step.max())))
+        if not worst <= 4 or rows_off > n_rows // 100:
+            raise AssertionError(f"{key}: {worst:.3g} p8 steps off (limit 4), {rows_off} of "
+                                 f"{n_rows} rows off by more than 1e-6 (limit {n_rows // 100})")
+        # the loosest row's limit; every output was held to its own row's above
+        record(key, "cross_decode_attention", DECODE_SRC, CROSS_REP, got, ref,
+               4 * float(step.max()),
+               time_ms(lambda: DA.cross_attention_int8_dots(q, kq, vq), torch, iters=20,
+                       flush=flush),
+               time_ms(lambda: DA.cross_attention_int8_dots_plain(q, kq, vq), torch, iters=3,
+                       flush=flush),
+               cross_bound(q, kq, "int8"), time_ms(sdpa, torch, flush=flush))
+        device_times(key, lambda: DA.cross_attention_int8_dots(q, kq, vq), sdpa, torch, checks,
+                     host=True)
+
+
+def extend_cross_case(torch, DA, checks, record, g, flush, dev):
+    """The cross kernel as ``extend`` launches it in speculative decoding at
+    large-v2: batch 1, 6 query rows (the teacher's pick and 5 drafts), bf16
+    q over bf16 storage [1, 20, 64, 1500] (unquantized, as in JAX);
+    tolerance 1e-3 as the other bf16 cases, SDPA over the same K/V."""
+    import torch.nn.functional as F
+
+    D, T, H = 64, 1500, 20
+    k, v = (DA.time_minor_copy(torch.randn((1, H, D, T), generator=g, device=dev)
+                               .to(torch.bfloat16)) for _ in range(2))
+    q = (torch.randn((1, 6, H, D), generator=g, device=dev) * 0.125).to(torch.bfloat16)
+    qh, kh, vh = q.transpose(1, 2), k.transpose(-1, -2), v.transpose(-1, -2)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qh, kh, vh, scale=1.0)
+
+    key = "cross_attention[bfloat16 q,bf16,rows=6,B=1]"
+    record(key, "cross_decode_attention", DECODE_SRC, CROSS_REP, DA.cross_attention(q, k, v),
+           DA.cross_attention_plain(q, k, v), 1e-3,
+           time_ms(lambda: DA.cross_attention(q, k, v), torch, iters=20, flush=flush),
+           time_ms(lambda: DA.cross_attention_plain(q, k, v), torch, flush=flush),
+           cross_bound(q, k), time_ms(sdpa, torch, flush=flush))
+    device_times(key, lambda: DA.cross_attention(q, k, v), sdpa, torch, checks, host=True)
 
 
 def decode_edge_cases(torch, DA, checks, g, dev):
@@ -681,21 +819,22 @@ def phase_kernels(torch, entries: dict, checks: list, case_rows: list, only=None
                 qs = (torch.randn((b, rows, h, D), generator=g, device=dev)
                       * q_scale).to(q_dtype)
                 lib = None
-                if kq.dtype == q_dtype:
-                    qh, kh, vh = qs.transpose(1, 2), kq.transpose(-1, -2), vq.transpose(-1, -2)
+                if kq.dtype == q_dtype or store == "int4":  # int4: SDPA on the dequantized K/V
+                    qh = qs.transpose(1, 2)
+                    kh, vh = (dequantized(DA, x, q_dtype).transpose(-1, -2) for x in (kq, vq))
                     lib = time_ms(lambda: F.scaled_dot_product_attention(
                         qh, kh, vh, scale=1.0), torch, flush=flush)
                 key = f"cross_attention[{str(q_dtype)[6:]} q,{store},rows={rows}{tag}]"
                 row = record(
                     key, "cross_decode_attention", DECODE_SRC, CROSS_REP,
-                    DA.cross_attention(qs, kq, vq) * v_scale,
-                    DA.cross_attention_plain(qs, kq, vq) * v_scale, tol,
-                    time_ms(lambda: DA.cross_attention(qs, kq, vq), torch, iters=20,
+                    DA.cross_attention(qs, kq, vq, T) * v_scale,
+                    DA.cross_attention_plain(qs, kq, vq, T) * v_scale, tol,
+                    time_ms(lambda: DA.cross_attention(qs, kq, vq, T), torch, iters=20,
                             flush=flush),
-                    time_ms(lambda: DA.cross_attention_plain(qs, kq, vq), torch, flush=flush),
+                    time_ms(lambda: DA.cross_attention_plain(qs, kq, vq, T), torch, flush=flush),
                     cross_bound(qs, kq), lib)
                 if q_dtype == bf16 and store in timed:
-                    device_times(key, lambda: DA.cross_attention(qs, kq, vq), None, torch,
+                    device_times(key, lambda: DA.cross_attention(qs, kq, vq, T), None, torch,
                                  checks, host=True)
                 if (store, rows) == entry:
                     entries["cross_decode_attention"] = row
@@ -704,11 +843,16 @@ def phase_kernels(torch, entries: dict, checks: list, case_rows: list, only=None
         return {"int8": (torch.randint(-127, 128, base.shape, generator=g, device=dev,
                                        dtype=torch.int8),) * 2 + (0.002, 1 / 127),
                 "fp8": ((base * 50).to(torch.float8_e4m3fn),
-                        (base * 25).to(torch.float8_e4m3fn), 0.0025, 1 / 25)}
+                        (base * 25).to(torch.float8_e4m3fn), 0.0025, 1 / 25),
+                # packed int4 (two positions a byte): scores of the same spread
+                "int4": (DA.pack_int4(torch.randint(-7, 8, base.shape, generator=g, device=dev,
+                                                    dtype=torch.int8)),) * 2 + (0.036, 1 / 7)}
 
+    # fp8 with 1 row is what each label decode step runs; int4 with 1 row
+    # each step of the --quantize_kv 4 label run
     cross_cases(B, H, bf16, lambda base: {
         "bf16": (base.to(bf16), (base * 0.5).to(bf16), 0.125, 1.0), **quantized(base)},
-        1e-3, ("fp8", 1))  # fp8 with 1 row is what each label decode step runs
+        1e-3, ("fp8", 1), timed=("fp8", "int4"))
     cross_cases(AB, AH, f32, lambda base: {
         "fp32": (base, base * 0.5, 0.125, 1.0), **quantized(base)}, 1e-5, None)
     # the prefilter's validator: bf16 storage (unquantized cross K/V, C = 4)
@@ -716,6 +860,8 @@ def phase_kernels(torch, entries: dict, checks: list, case_rows: list, only=None
                                                      0.125, 1.0)},
                 1e-3, None, timed=("bf16",), tag=f",B={PB},H={PH}")
     cross_tile_cases(torch, DA, checks, record, g, flush, dev)
+    int8_dots_cases(torch, DA, checks, record, g, flush, dev)
+    extend_cross_case(torch, DA, checks, record, g, flush, dev)
 
     # 4. self attention over the cache [B, H, 64, S] (row-padded) at the
     # last step (index S - 1): bf16 at the label path's shapes with no
@@ -1099,48 +1245,56 @@ def label_launches(cfg, batches: int, tokens: int = MAX_DECODE_TOKENS) -> dict:
 
 
 def phase_label(torch, entries: dict, results: dict, model_dir: str):
+    """``cli label`` at b32 with fp8 cross-KV, then the same run with
+    ``--quantize_kv 4`` (packed int4), on the same WAVs in one call: the
+    audio-s/s of both side by side, each run's counters exact."""
     from taiwan_whisper_tpu_torch import cli, get_config
     from taiwan_whisper_tpu_torch.audio.manifest import Manifest, write_manifest
 
     cfg = get_config("large-v2")
+    runs = {}
     with tempfile.TemporaryDirectory() as tmp:
         audio_dir = os.path.join(tmp, "audio")
         os.makedirs(audio_dir)
         names = _synth_wavs(audio_dir, LABEL_FILES, LABEL_SECONDS, seed=0)
         manifest = os.path.join(tmp, "manifest.tsv")
         write_manifest(manifest, Manifest(root=audio_dir, paths=names))
-        out_dir = os.path.join(tmp, "labels")
-        zero_counters()
-        t0 = time.perf_counter()
-        stats = cli.main([
-            "label", "--manifest", manifest, "--model", model_dir, "--output_dir", out_dir,
-            "--batch_size", str(LARGE_V2_BATCH), "--quantize_kv", "fp8", "--language", "zh",
-            "--vad_mode", "off", "--wire_mode", "chunks",
-            "--max_decode_tokens", str(MAX_DECODE_TOKENS)])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = read_counters()
-        csvs = sorted(n for n in os.listdir(out_dir) if n.endswith(".csv"))
-        rows = 0
-        for n in csvs:
-            with open(os.path.join(out_dir, n), encoding="utf-8") as f:
-                rows += sum(1 for _ in f) - 1
-    batches = stats["batches"]
-    expected = label_launches(cfg, batches)
-    rate = stats["audio_seconds"] / stats["wall_seconds"]
-    log(f"[label] {stats['files']} files, {stats['chunks']} chunks, {batches} batches: "
-        f"{rate:.2f} audio-s/s (label_files wall {stats['wall_seconds']:.2f} s, cli wall "
-        f"incl. checkpoint load {wall:.2f} s, decode {stats['decode_s']:.2f} s); "
-        f"{len(csvs)} CSVs, {rows} segment rows")
-    log(f"[label] launches {json.dumps(launches)} expected {json.dumps(expected)}")
-    if stats["files"] != LABEL_FILES or len(csvs) != LABEL_FILES or batches != 2:
-        raise AssertionError(f"label run incomplete: {stats}")
-    if launches != expected:
-        raise AssertionError(f"launch counts {launches} != expected {expected}")
-    add_launches(entries, results, "label", launches)
-    results["label"] = dict(audio_s_per_s=rate, wall_seconds=stats["wall_seconds"],
-                            cli_wall_seconds=wall, chunks=stats["chunks"], batches=batches,
-                            csvs=len(csvs), segment_rows=rows)
+        for quant, path in (("fp8", "label"), ("4", "label_int4")):
+            out_dir = os.path.join(tmp, path)
+            zero_counters()
+            t0 = time.perf_counter()
+            stats = cli.main([
+                "label", "--manifest", manifest, "--model", model_dir, "--output_dir", out_dir,
+                "--batch_size", str(LARGE_V2_BATCH), "--quantize_kv", quant, "--language", "zh",
+                "--vad_mode", "off", "--wire_mode", "chunks",
+                "--max_decode_tokens", str(MAX_DECODE_TOKENS)])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read_counters()
+            csvs = sorted(n for n in os.listdir(out_dir) if n.endswith(".csv"))
+            rows = 0
+            for n in csvs:
+                with open(os.path.join(out_dir, n), encoding="utf-8") as f:
+                    rows += sum(1 for _ in f) - 1
+            batches = stats["batches"]
+            expected = label_launches(cfg, batches)
+            rate = stats["audio_seconds"] / stats["wall_seconds"]
+            log(f"[{path}] --quantize_kv {quant}: {stats['files']} files, {stats['chunks']} "
+                f"chunks, {batches} batches: {rate:.2f} audio-s/s (label_files wall "
+                f"{stats['wall_seconds']:.2f} s, cli wall incl. checkpoint load {wall:.2f} s, "
+                f"decode {stats['decode_s']:.2f} s); {len(csvs)} CSVs, {rows} segment rows")
+            log(f"[{path}] launches {json.dumps(launches)} expected {json.dumps(expected)}")
+            if stats["files"] != LABEL_FILES or len(csvs) != LABEL_FILES or batches != 2:
+                raise AssertionError(f"{path} run incomplete: {stats}")
+            if launches != expected:
+                raise AssertionError(f"{path} launch counts {launches} != expected {expected}")
+            add_launches(entries, results, path, launches)
+            runs[quant] = dict(audio_s_per_s=rate, wall_seconds=stats["wall_seconds"],
+                               cli_wall_seconds=wall, chunks=stats["chunks"], batches=batches,
+                               decode_s=stats["decode_s"], csvs=len(csvs), segment_rows=rows)
+    log(f"[label] audio-s/s in one call: fp8 {runs['fp8']['audio_s_per_s']:.2f}, int4 "
+        f"{runs['4']['audio_s_per_s']:.2f}")
+    results["label"] = dict(runs["fp8"], int4=runs["4"])
 
 
 def vad_agree(torch, results: dict, audio_paths):
@@ -1518,6 +1672,124 @@ def phase_longform(torch, entries: dict, results: dict, model_dir: str):
     phase_s = time.perf_counter() - t_phase
     log(f"[longform] phase wall {phase_s:.1f} s")
     results["longform"] = dict(runs, phase_seconds=phase_s)
+
+
+def phase_speculative(torch, entries: dict, results: dict, model_dir: str):
+    """Speculative decoding at large-v2 width: the 32-2 student that ``cli
+    init-student`` cuts from the random large-v2 drafts (it shares the
+    teacher's encoder), the teacher verifies with ``extend`` (the cross
+    kernel at 6 rows, batch 1). ``cli evaluate
+    @configs/eval_speculative.args`` (manifest, model, assistant and vocab
+    overridden) on ``SPEC_UTTS`` utterances, each decoded to the teacher's
+    448 positions (random weights emit no eot), then ``cli label
+    @configs/label_large_v2.args --assistant`` with ``--max_decode_tokens
+    SPEC_TOKENS`` on ``SPEC_FILES`` FLAC lectures of ``SPEC_SECONDS``
+    (spectral VAD on the card, one window at a time). Rounds and accept
+    rates are read from each ``speculative_decode`` call; each run's
+    counters must show mel, encoder attention, self attention, and cross
+    attention at 1 row (the student's steps) and 6 rows (extend)."""
+    from taiwan_whisper_tpu_torch import cli
+    from taiwan_whisper_tpu_torch.audio.io import write_flac
+    from taiwan_whisper_tpu_torch.audio.manifest import Manifest, write_manifest
+    from taiwan_whisper_tpu_torch.ops import decode_attention as DA
+    from taiwan_whisper_tpu_torch.pipeline import evaluate as E
+    from taiwan_whisper_tpu_torch.pipeline import label as L
+    from taiwan_whisper_tpu_torch.tools.synth_audio import synth_lecture, write_lecture_flacs
+
+    t_phase = time.perf_counter()
+    configs = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs")
+    runs, calls = {}, []
+
+    def recorded(fn):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            res = fn(*args, **kw)
+            calls.append(dict(rounds=res.rounds, accept=res.draft_accept_rate,
+                              length=res.length, seconds=time.perf_counter() - t0))
+            return res
+        return call
+
+    def counted(name, fn):
+        zero_counters()
+        calls.clear()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counters()
+        by_rows = dict(DA.cross_attention.launches_by_rows)
+        rounds = sum(c["rounds"] for c in calls)
+        accept = float(np.mean([c["accept"] for c in calls])) if calls else float("nan")
+        log(f"[speculative] {name}: {wall:.2f} s, {len(calls)} speculative_decode calls, "
+            f"{rounds} rounds, mean draft accept rate {accept:.4f}, tokens "
+            f"{[c['length'] for c in calls]}, launches {json.dumps(launches)}, cross launches "
+            f"by rows {json.dumps(by_rows)}")
+        missing = [k for k in ("mel", "encoder_attention", "self_decode_attention")
+                   if not launches[k]] + [f"cross at {r} rows" for r in (1, DRAFTS + 1)
+                                          if not by_rows.get(r)]
+        if missing or not calls:
+            raise AssertionError(f"speculative {name}: no launch of {missing}, or no "
+                                 f"speculative_decode call ({len(calls)})")
+        add_launches(entries, results, f"speculative_{name}", launches)
+        runs[name] = dict(wall_s=wall, launches=launches, cross_by_rows=by_rows,
+                          decodes=len(calls), rounds=rounds, draft_accept_rate=accept,
+                          ms_per_round=1e3 * sum(c["seconds"] for c in calls) / max(rounds, 1))
+        return out
+
+    saved = E.speculative_decode, L.speculative_decode
+    E.speculative_decode, L.speculative_decode = (recorded(f) for f in saved)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            student = os.path.join(tmp, "student-32-2")
+            cli.main(["init-student", "--teacher", model_dir, "--out", student,
+                      "--decoder_layers", "2"])
+            tok_dir, test_dir, lec_dir = (os.path.join(tmp, k) for k in ("tok", "test", "lec"))
+            for d in (tok_dir, test_dir, lec_dir):
+                os.makedirs(d)
+            _byte_vocab(tok_dir)
+            rng = np.random.RandomState(8)
+            for i in range(SPEC_UTTS):
+                write_flac(os.path.join(test_dir, f"u{i}.flac"), synth_lecture(rng, 8.0 + 3 * i))
+                with open(os.path.join(test_dir, f"u{i}.txt"), "w", encoding="utf-8") as f:
+                    f.write("今天我們來討論語音辨識 hello world\n")
+            manifest = os.path.join(tmp, "test.tsv")
+            write_manifest(manifest, Manifest(root=test_dir, paths=[
+                f"u{i}.flac" for i in range(SPEC_UTTS)]))
+            out_dir = os.path.join(tmp, "eval")
+            metrics = counted("evaluate", lambda: cli.main([
+                "evaluate", f"@{configs}/eval_speculative.args", "--manifest", manifest,
+                "--model", model_dir, "--assistant", student, "--tokenizer_dir", tok_dir,
+                "--output_dir", out_dir]))
+            log(f"[speculative] evaluate: {json.dumps(metrics)}")
+            if metrics["n_samples"] != SPEC_UTTS or not np.isfinite(metrics["rtf"]):
+                raise AssertionError(f"speculative evaluate: {metrics}")
+            runs["evaluate"].update(rtf=metrics["rtf"],
+                                    audio_s_per_s=metrics["audio_seconds_per_second"])
+
+            names = write_lecture_flacs(lec_dir, SPEC_FILES, SPEC_SECONDS, seed=9)
+            lec_manifest = os.path.join(tmp, "lectures.tsv")
+            write_manifest(lec_manifest, Manifest(root=lec_dir, paths=names))
+            label_dir = os.path.join(tmp, "labels")
+            stats = counted("label", lambda: cli.main([
+                "label", f"@{configs}/label_large_v2.args", "--manifest", lec_manifest,
+                "--model", model_dir, "--assistant", student, "--output_dir", label_dir,
+                "--max_decode_tokens", str(SPEC_TOKENS)]))
+            csvs = _read_csvs(label_dir)
+            rate = stats["audio_seconds"] / stats["wall_seconds"]
+            log(f"[speculative] label: {stats['files']} files, {stats['spec_windows']} windows, "
+                f"{stats['spec_rounds']} rounds, draft accept rate "
+                f"{stats['draft_accept_rate']:.4f}, {rate:.2f} audio-s/s (RTF "
+                f"{1 / rate:.3f}), {len(csvs)} CSVs")
+            if stats["files"] != SPEC_FILES or len(csvs) != SPEC_FILES \
+                    or stats["spec_windows"] != len(calls):
+                raise AssertionError(f"speculative label run incomplete: {stats}")
+            runs["label"].update(audio_s_per_s=rate, rtf=1 / rate,
+                                 windows=stats["spec_windows"])
+    finally:
+        E.speculative_decode, L.speculative_decode = saved
+    phase_s = time.perf_counter() - t_phase
+    log(f"[speculative] phase wall {phase_s:.1f} s")
+    results["speculative"] = dict(runs, phase_seconds=phase_s)
 
 
 PREFILTER_WORDS = ["今天", "我們", "來", "討論", "語音", "辨識", "模型", "的", "訓練", "資料",
@@ -1966,7 +2238,7 @@ def phase_train_agree(torch, results: dict):
                                   launches=launches)
 
 
-def phase_agree(torch, results: dict):
+def phase_agree(torch, entries: dict, results: dict):
     from taiwan_whisper_tpu_torch import DtypePolicy, get_config
     from taiwan_whisper_tpu_torch.audio.mel import N_SAMPLES
     from taiwan_whisper_tpu_torch.decode.greedy import greedy_decode
@@ -2053,6 +2325,111 @@ def phase_agree(torch, results: dict):
     if beam_agreement < 0.98:
         raise AssertionError(f"card-vs-CPU beam token agreement {beam_agreement:.4f} < 0.98")
     results["agree"].update(beam_agreement=beam_agreement, beam_launches=launches)
+    agree_quantized(torch, entries, results, weights, cfg, audio, prefix, rules)
+    agree_speculative(torch, results, weights, cfg, audio, sot, rules)
+
+
+def first_mismatch(a, b):
+    """(agreement, the first diverging (row, position) with both tokens)."""
+    same = a == b
+    mism = np.argwhere(~same)
+    first = None if len(mism) == 0 else dict(
+        row=int(mism[0][0]), pos=int(mism[0][1]), cuda=int(a[tuple(mism[0])]),
+        cpu=int(b[tuple(mism[0])]))
+    return float(same.mean()), first
+
+
+def agree_quantized(torch, entries, results, weights, cfg, audio, prefix, rules):
+    """Greedy with int4 and with "8x8" cross K/V, base at fp32, batch 4:
+    card vs CPU tokens agree on at least 0.98 of positions; the card's run
+    launches mel once, the encoder's layers and, a step, one cross and one
+    self launch a layer (the prefill one cross more)."""
+    from taiwan_whisper_tpu_torch import DtypePolicy
+    from taiwan_whisper_tpu_torch.decode.greedy import greedy_decode
+    from taiwan_whisper_tpu_torch.models import whisper as M
+    from taiwan_whisper_tpu_torch.models.params import prepare_params
+    from taiwan_whisper_tpu_torch.ops import mel_kernel
+
+    pol = DtypePolicy.fp32()
+    for quant in (4, "8x8"):
+        out = {}
+        for dev in ("cuda", "cpu"):
+            params = prepare_params(weights, pol, dev)
+            if dev == "cuda":
+                zero_counters()
+            with torch.inference_mode():
+                enc = M.encode(params, mel_kernel.log_mel(audio.to(dev)), cfg, pol)
+            res = greedy_decode(params, enc, prefix, cfg, rules, pol,
+                                max_len=prefix.shape[1] + AGREE_TOKENS, quantize_cross_kv=quant,
+                                device=dev)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                launches = read_counters()
+            out[dev] = res.tokens[:, prefix.shape[1]:].cpu().numpy()
+        steps = launches["self_decode_attention"] // cfg.decoder_layers
+        if not (launches["mel"] == 1 and launches["encoder_attention"] == cfg.encoder_layers
+                and launches["self_decode_attention"] == cfg.decoder_layers * steps
+                and launches["cross_decode_attention"] == cfg.decoder_layers * (1 + steps)
+                and 0 < steps <= AGREE_TOKENS):
+            raise AssertionError(f"agree greedy {quant!r} launch counts {launches} do not fit "
+                                 f"{steps} steps")
+        add_launches(entries, results, f"agree_{quant}", launches)
+        agreement, first = first_mismatch(out["cuda"], out["cpu"])
+        log(f"[agree] greedy quantize {quant!r}, base fp32, batch {AGREE_BATCH}: card-vs-CPU "
+            f"token agreement {agreement:.4f}, first mismatch {first}")
+        results["agree"][f"greedy_{quant}"] = dict(agreement=agreement, first_mismatch=first)
+        if agreement < 0.98:
+            raise AssertionError(f"card-vs-CPU greedy {quant!r} agreement {agreement:.4f} < 0.98")
+
+
+def agree_speculative(torch, results, weights, cfg, audio, sot, rules):
+    """``speculative_decode`` on the card against the card's own teacher
+    ``greedy_decode`` (the greedy-exact property) on the first utterance,
+    base teacher, ``SPEC_TOKENS`` tokens: with its 2-layer distilled
+    student (``init_student_from_teacher``, shared encoder) and with the
+    teacher as its own assistant, whose accept rate must exceed 0.9, both
+    at fp32 (agreement at least 0.98); the same two at bf16 are logged only:
+    extend's 6-row GEMMs and decode_step's 1-row GEMMs round differently."""
+    from taiwan_whisper_tpu_torch import DtypePolicy
+    from taiwan_whisper_tpu_torch.decode.greedy import greedy_decode
+    from taiwan_whisper_tpu_torch.decode.speculative import speculative_decode
+    from taiwan_whisper_tpu_torch.models import whisper as M
+    from taiwan_whisper_tpu_torch.models.params import init_student_from_teacher, prepare_params
+    from taiwan_whisper_tpu_torch.ops import mel_kernel
+
+    scfg = cfg.with_decoder_layers(2)
+    student_w = init_student_from_teacher(weights, cfg, 2)
+    prefix = torch.tensor([sot], dtype=torch.int32)
+    max_len = len(sot) + SPEC_TOKENS
+    out = {}
+    for name, pol in (("fp32", DtypePolicy.fp32()), ("bf16", DtypePolicy())):
+        teacher = prepare_params(weights, pol, "cuda")
+        with torch.inference_mode():
+            enc = M.encode(teacher, mel_kernel.log_mel(audio[:1].cuda()), cfg, pol)
+        greedy = greedy_decode(teacher, enc, prefix, cfg, rules, pol, max_len=max_len,
+                               device="cuda").tokens.cpu().numpy()
+        for kind, sparams, s_cfg in (("student", prepare_params(student_w, pol, "cuda"), scfg),
+                                     ("teacher", teacher, cfg)):
+            t0 = time.perf_counter()
+            res = speculative_decode(teacher, cfg, sparams, s_cfg, enc, enc, prefix, rules, pol,
+                                     num_draft_tokens=DRAFTS, max_len=max_len, device="cuda")
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            agreement, first = first_mismatch(res.tokens.cpu().numpy()[:, len(sot):],
+                                              greedy[:, len(sot):])
+            log(f"[agree] speculative {name}, base teacher, {kind} drafting (k {DRAFTS}): "
+                f"agreement with the card's greedy {agreement:.4f}, first mismatch {first}; "
+                f"{res.rounds} rounds, draft accept rate {res.draft_accept_rate:.4f}, "
+                f"{res.length} tokens in {secs:.3f} s")
+            out[f"{name}_{kind}"] = dict(agreement=agreement, first_mismatch=first,
+                                         rounds=res.rounds, accept=res.draft_accept_rate)
+            if name == "fp32" and agreement < 0.98:
+                raise AssertionError(f"speculative ({kind}) vs greedy agreement {agreement:.4f} "
+                                     f"< 0.98 at fp32")
+            if name == "fp32" and kind == "teacher" and not res.draft_accept_rate > 0.9:
+                raise AssertionError(f"the teacher drafting for itself accepted "
+                                     f"{res.draft_accept_rate:.4f} <= 0.9")
+    results["agree"]["speculative"] = out
 
 
 def main(argv) -> int:
@@ -2070,8 +2447,8 @@ def main(argv) -> int:
         print(f"chip_smoke: run from the repository root ({e})", file=sys.stderr)
         return 2
     t_start = time.perf_counter()
-    phases = argv or ["kernels", "label", "label_vad", "label_beam", "longform", "prefilter",
-                      "train", "train_agree", "agree"]
+    phases = argv or ["kernels", "label", "label_vad", "label_beam", "longform", "speculative",
+                      "prefilter", "train", "train_agree", "agree"]
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -2087,7 +2464,8 @@ def main(argv) -> int:
         log("checks " + json.dumps({"checks": checks}))
     with tempfile.TemporaryDirectory() as tmp:
         model_dir = (write_large_v2(tmp, torch)
-                     if {"label", "label_vad", "label_beam", "longform", "train"} & set(phases)
+                     if {"label", "label_vad", "label_beam", "longform", "speculative",
+                         "train"} & set(phases)
                      else None)
         if "label" in phases:
             phase_label(torch, entries, results, model_dir)
@@ -2097,6 +2475,8 @@ def main(argv) -> int:
             phase_label_beam(torch, entries, results, model_dir)
         if "longform" in phases:
             phase_longform(torch, entries, results, model_dir)
+        if "speculative" in phases:
+            phase_speculative(torch, entries, results, model_dir)
         if "prefilter" in phases:
             phase_prefilter(torch, entries, results)
         if "train" in phases:
@@ -2104,7 +2484,7 @@ def main(argv) -> int:
     if "train_agree" in phases:
         phase_train_agree(torch, results)
     if "agree" in phases:
-        phase_agree(torch, results)
+        phase_agree(torch, entries, results)
     log("results " + json.dumps(results))
     log(f"[smoke] phases {' '.join(phases)}: {time.perf_counter() - t_start:.1f} s")
     # every kernel case; launches are the kernel's, all its shapes, not the

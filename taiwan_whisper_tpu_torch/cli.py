@@ -1,7 +1,7 @@
 """Command line of the PyTorch port.
 
     python -m taiwan_whisper_tpu_torch.cli label --manifest ... --model ... \\
-        --output_dir ... [--validation_manifest ...] [--device cuda|cpu]
+        --output_dir ... [--validation_manifest ...] [--assistant DIR] [--device cuda|cpu]
     python -m taiwan_whisper_tpu_torch.cli segment --trans_dir ... --audio_dir ... \\
         --output_dir ...
     python -m taiwan_whisper_tpu_torch.cli make-manifest --root ... --out ...
@@ -15,18 +15,18 @@
     python -m taiwan_whisper_tpu_torch.cli finetune --manifest ... --model ... \\
         --output_dir ... [--freeze_encoder] [--device cuda|cpu]
     python -m taiwan_whisper_tpu_torch.cli evaluate --manifest ... --model ... \\
-        [--mode short|sequential|chunked] [--num_beams N] [--device cuda|cpu]
+        [--mode short|sequential|chunked|speculative] [--assistant DIR] [--num_beams N] \\
+        [--device cuda|cpu]
     python -m taiwan_whisper_tpu_torch.cli transcribe --audio ... --model ... \\
         --output_dir ... [--strategy chunked|sequential] [--format srt|vtt|txt|json]
 
 Each subcommand takes the JAX CLI's flags and defaults
 (taiwan_whisper_tpu/cli.py); those that run a model also take
 ``--device``, and ``distill`` and ``finetune`` ``--compute_dtype`` (bf16,
-the JAX CLI's policy, or fp32) and ``--logging_steps``. Options this slice
-does not run yet raise NotImplementedError naming their ROADMAP item:
-label's ``--assistant`` and evaluate's ``--mode speculative`` (Queue A 5),
-``--quantize_kv 4`` (Queue A 4), ``--distributed`` (Queue A 6). ``sweep``
-waits for a later slice (Queue A 6).
+the JAX CLI's policy, or fp32) and ``--logging_steps``. label's and
+evaluate's ``--assistant`` load the draft model on the same device.
+``--distributed`` raises NotImplementedError naming its ROADMAP item
+(Queue A 6); ``sweep`` waits for a later slice (Queue A 6).
 """
 
 from __future__ import annotations
@@ -56,13 +56,8 @@ def _quant_arg(v: str):
 def cmd_label(args):
     from .pipeline.label import LabelConfig, run_labelling
 
-    unported = [name for name, on in (
-        ("--assistant", args.assistant is not None),
-        ("--distributed", args.distributed),
-    ) if on]
-    if unported:
-        raise NotImplementedError(
-            f"{', '.join(unported)} wait(s) for a later slice of the port (ROADMAP)")
+    if args.distributed:
+        raise NotImplementedError(f"--distributed {_UNPORTED}")
     stats = run_labelling(
         args.manifest, args.model, args.output_dir,
         LabelConfig(
@@ -78,8 +73,10 @@ def cmd_label(args):
             max_decode_tokens=args.max_decode_tokens,
             pack_regions=args.pack_regions,
             group_segs=args.group_segs,
+            num_draft_tokens=args.num_draft_tokens,
         ),
         tokenizer_dir=args.tokenizer_dir,
+        assistant_dir=args.assistant,
         validation_manifest=args.validation_manifest,
         device=args.device,
     )
@@ -276,17 +273,20 @@ def _load_for(args):
 
 
 def cmd_evaluate(args):
+    from .models.io import load_model
+    from .models.params import map_params
     from .pipeline.evaluate import EvalConfig, evaluate_manifest
 
-    if args.assistant:
-        raise NotImplementedError("--assistant (speculative evaluation) waits for a later "
-                                  "slice of the port (ROADMAP Queue A 5)")
     params, config, tok, dev = _load_for(args)
+    assistant = None
+    if args.assistant:
+        a_params, a_config = load_model(args.assistant)
+        assistant = (map_params(lambda _, t: t.to(dev), a_params), a_config)
     res = evaluate_manifest(
         params, config, tok, args.manifest,
         EvalConfig(language=args.language, mode=args.mode, batch_size=args.batch_size,
                    num_beams=args.num_beams),
-        output_dir=args.output_dir, device=dev)
+        output_dir=args.output_dir, assistant=assistant, device=dev)
     metrics = {"mer": res.mer, "en_wer": res.en_wer, "zh_cer": res.zh_cer, "rtf": res.rtf,
                "audio_seconds_per_second": res.audio_seconds_per_second,
                "n_samples": res.n_samples}
@@ -379,8 +379,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "with numpy elsewhere")
     p.add_argument("--quantize_kv", type=_quant_arg, nargs="?", const=8,
                    default=0, metavar="MODE",
-                   help="cross-KV quantization: bare flag or 8 -> int8, fp8 -> "
-                        "e4m3, off -> disabled (4 waits for a later slice)")
+                   help="cross-KV quantization: bare flag or 8 -> int8, 4 -> int4 "
+                        "(packed two a byte), fp8 -> e4m3, off -> disabled")
     p.add_argument("--num_beams", type=int, default=1)
     p.add_argument("--no_pooled", action="store_true")
     p.add_argument("--wire_mode", default="auto", choices=["auto", "resident", "chunks"],
@@ -393,7 +393,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="resident path: pack short VAD regions into shared windows")
     p.add_argument("--max_decode_tokens", type=int, default=None,
                    help="cap sampled tokens per 30 s chunk (None = model max 448)")
-    p.add_argument("--assistant", default=None)
+    p.add_argument("--assistant", default=None,
+                   help="draft model dir: label with speculative decoding (a distilled "
+                        "student drafts, the teacher verifies; one 30 s window at a time)")
     p.add_argument("--num_draft_tokens", type=int, default=5)
     p.add_argument("--validation_manifest", default=None,
                    help="labelled split (audio + transcript txts) to label too and score "
@@ -495,8 +497,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--language", default="zh",
                    help="forced language; 'none' for *.en models")
     p.add_argument("--mode", default="short",
-                   choices=["short", "sequential", "chunked", "speculative"],
-                   help="speculative waits for a later slice")
+                   choices=["short", "sequential", "chunked", "speculative"])
     p.add_argument("--assistant", default=None,
                    help="assistant (draft) model dir for --mode speculative")
     p.add_argument("--batch_size", type=int, default=16)
@@ -516,7 +517,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch_size", type=int, default=8)
     p.add_argument("--quantize_kv", type=_quant_arg, nargs="?", const=8,
                    default=0, metavar="MODE",
-                   help="off/8/fp8 (bare flag = int8; 4 waits for a later slice)")
+                   help="off/8/4/fp8 (bare flag = int8)")
     p.add_argument("--num_beams", type=int, default=1)
     _add_model_common(p)
     p.set_defaults(fn=cmd_transcribe)

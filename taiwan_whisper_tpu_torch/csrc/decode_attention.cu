@@ -55,6 +55,25 @@
 // exchange; CTA 0 adds the value). The fp32-q variants share the design.
 // A cluster of one CTA launches without the cluster attribute and syncs as
 // a plain block.
+//
+// Storage variants of the cross kernel: bf16 / fp32 / int8 / fp8 (one
+// element a position) and packed int4 (two positions a byte, position 2j in
+// the low nibble, two's complement; the JAX package's jnp.int4 K/V). A
+// staged span starts on 16 bytes whatever the width, so int4 spans are
+// multiples of 32 positions; a group of 4 positions is 2 bytes and `load4`
+// sign-extends its nibbles. The "8x8" variant (the JAX model's int8_dots
+// route, taiwan_whisper_tpu/models/whisper.py:506-526) runs over int8
+// storage with fp32 q: each row's q is quantized to int8 over its 64 d
+// (qmax = max|q| + 1e-12, round half to even, clip to 127), the scores are
+// int8 x int8 dot products (__dp4a over 4 d rows whose bytes are transposed
+// from 4 time-minor rows) times qmax / 127, the softmax is fp32 as above,
+// the probabilities are quantized after the cluster's (max, sum) exchange
+// (p8 = round(p / pmax * 127), pmax = the largest probability, 1 / sum, +
+// 1e-12) and P V is __dp4a over 4 positions; the C CTAs' int32 partials add
+// exactly in rank 0, which scales them by pmax / 127. Integer dot products
+// are exact, so only the fp32 softmax's summation order separates the
+// kernel from the plain version: a probability that lands within an ulp of
+// a rounding boundary of p8 can round the other way.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -64,6 +83,7 @@
 #include <stdint.h>
 
 #include <atomic>
+#include <type_traits>
 
 #include "hopper_attention.cuh"
 
@@ -80,9 +100,19 @@ __host__ __device__ constexpr bool one_tile(bool self) { return self; }
 constexpr int MAX_ROWS = 8;        // query rows per tile
 constexpr int MAX_TILES = 448;     // tiles per call: up to 8 x 448 query rows
 constexpr int SPAN_ALIGN = 16;     // positions: 16 bytes of fp8, 32 of bf16, 64 of fp32
+constexpr int SPAN_ALIGN4 = 32;    // positions of packed int4 in 16 bytes
 constexpr int MAX_SMEM = 232448;   // the 227 KB one block may take on an H100
 constexpr int QSTRIDE = D + 8;     // floats per staged q row (see q_at)
 constexpr int MAX_DEVICES = 64;    // devices whose kernel attributes are cached
+
+// packed int4 storage: two positions a byte, position 2j in the low nibble
+struct int4x2_t {
+  uint8_t b;
+};
+
+// bits of storage a position takes
+template <typename T> __host__ __device__ constexpr int kv_bits() { return 8 * (int)sizeof(T); }
+template <> __host__ __device__ constexpr int kv_bits<int4x2_t>() { return 4; }
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -120,6 +150,11 @@ __device__ __forceinline__ void load4(const int8_t* p, float (&f)[4]) {
 #pragma unroll
   for (int j = 0; j < 4; ++j) f[j] = (float)(int8_t)(x >> (8 * j));
 }
+__device__ __forceinline__ void load4(const int4x2_t* p, float (&f)[4]) {
+  const uint32_t x = *reinterpret_cast<const uint16_t*>(p);  // positions 0-3, low nibble first
+#pragma unroll
+  for (int j = 0; j < 4; ++j) f[j] = (float)((int32_t)(x << (28 - 4 * j)) >> 28);
+}
 __device__ __forceinline__ void load4(const __nv_fp8_e4m3* p, float (&f)[4]) {
   const uint32_t x = *reinterpret_cast<const uint32_t*>(p);
   __nv_fp8x2_e4m3 lo, hi;  // the lower byte is the first position (.x)
@@ -131,6 +166,20 @@ __device__ __forceinline__ void load4(const __nv_fp8_e4m3* p, float (&f)[4]) {
 
 __device__ __forceinline__ float shfl(float x, int off) {
   return __shfl_xor_sync(0xffffffffu, x, off);
+}
+__device__ __forceinline__ int shfl(int x, int off) {
+  return __shfl_xor_sync(0xffffffffu, x, off);
+}
+
+// 4 rows of 4 bytes (byte j of row i: position j of d row i) -> 4 words of
+// the 4 rows' bytes at one position (word j: byte i = d row i at position j)
+__device__ __forceinline__ void transpose4(const uint32_t (&w)[4], uint32_t (&t)[4]) {
+  const uint32_t lo01 = __byte_perm(w[0], w[1], 0x5140), hi01 = __byte_perm(w[0], w[1], 0x7362);
+  const uint32_t lo23 = __byte_perm(w[2], w[3], 0x5140), hi23 = __byte_perm(w[2], w[3], 0x7362);
+  t[0] = __byte_perm(lo01, lo23, 0x5410);
+  t[1] = __byte_perm(lo01, lo23, 0x7632);
+  t[2] = __byte_perm(hi01, hi23, 0x5410);
+  t[3] = __byte_perm(hi01, hi23, 0x7632);
 }
 
 // The four lanes 4g..4g+3 each hold partial scores of positions 4g..4g+3
@@ -145,19 +194,19 @@ __device__ __forceinline__ float reduce4(const float (&s)[4], int quarter) {
 
 // Every lane holds partials of 8 rows; returns the warp's sum of row
 // ((lane >> 4) & 1) * 4 + ((lane >> 3) & 1) * 2 + ((lane >> 2) & 1).
-__device__ __forceinline__ float reduce_rows8(float (&v)[8], int lane) {
+template <typename T> __device__ __forceinline__ T reduce_rows8(T (&v)[8], int lane) {
   const bool h16 = lane & 16, h8 = lane & 8, h4 = lane & 4;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const float keep = h16 ? v[i + 4] : v[i], send = h16 ? v[i] : v[i + 4];
+    const T keep = h16 ? v[i + 4] : v[i], send = h16 ? v[i] : v[i + 4];
     v[i] = keep + shfl(send, 16);
   }
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const float keep = h8 ? v[i + 2] : v[i], send = h8 ? v[i] : v[i + 2];
+    const T keep = h8 ? v[i + 2] : v[i], send = h8 ? v[i] : v[i + 2];
     v[i] = keep + shfl(send, 8);
   }
-  float x = (h4 ? v[1] : v[0]) + shfl(h4 ? v[0] : v[1], 4);
+  T x = (h4 ? v[1] : v[0]) + shfl(h4 ? v[0] : v[1], 4);
   x += shfl(x, 2);
   return x + shfl(x, 1);
 }
@@ -194,14 +243,14 @@ template <int N> __device__ __forceinline__ void copy_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
-// the [D, nch 16-byte chunks] tile of rows `g` (row stride `sd` elements)
+// the [D, nch 16-byte chunks] tile of rows `g` (row stride `sd` bytes)
 // into the staged tile at `s`: thread i copies chunks i, i + NT, ...
-template <int NT, typename TKV>
-__device__ __forceinline__ void stage(uint8_t* s, const TKV* g, long long sd, int span_b,
+template <int NT>
+__device__ __forceinline__ void stage(uint8_t* s, const uint8_t* g, long long sd, int span_b,
                                       int nch) {
   for (int i = threadIdx.x; i < D * nch; i += NT) {
     const int d = i / nch, c = i - d * nch;
-    copy16(s + row_off(d, span_b) + 16 * c, reinterpret_cast<const uint8_t*>(g + d * sd) + 16 * c);
+    copy16(s + row_off(d, span_b) + 16 * c, g + d * sd + 16 * c);
   }
   copy_commit();
 }
@@ -217,28 +266,33 @@ struct Args {
   int H, R, hi, span, cluster;             // positions [lo, hi); C CTAs of `span` each
 };
 
-// Shared memory of one CTA: the K and V tiles (one tile for both when
-// `one_tile`), the scores / probabilities [ROWS, span], q [ROWS, QSTRIDE],
-// the partial outputs of every rank [C, ROWS, D] (filled in rank 0), and
-// the statistics slots.
-__host__ __device__ constexpr size_t smem_bytes(bool self, int span, int elem, int rows,
-                                                int cluster) {
-  return (one_tile(self) ? 1 : 2) * (size_t)tile_bytes(span * elem) +
+// Shared memory of one CTA: the K and V tiles of `span_b` bytes a row (one
+// tile for both when `one_tile`), the scores / probabilities [ROWS, span],
+// q [ROWS, QSTRIDE], the partial outputs of every rank [C, ROWS, D] (filled
+// in rank 0), the statistics slots, and (`i8`, the "8x8" variant only)
+// its int8 q [ROWS, D / 4 words] and q scales [ROWS].
+__host__ __device__ constexpr size_t smem_bytes(bool self, int span, int span_b, int rows,
+                                                int cluster, bool i8) {
+  return (one_tile(self) ? 1 : 2) * (size_t)tile_bytes(span_b) +
          4 * ((size_t)rows * span + (size_t)rows * QSTRIDE + (size_t)cluster * rows * D +
-              (size_t)threads_of(self) / 32 * rows * 2 + 4 * rows + 4);
+              (size_t)threads_of(self) / 32 * rows * 2 + 4 * rows + 4 +
+              (i8 ? (size_t)rows * (D / 4 + 1) : 0));
 }
 
-template <typename TQ, typename TKV, int ROWS, bool SELF>
+// I8: the "8x8" variant (fp32 q, int8 K/V, int8 x int8 dots)
+template <typename TQ, typename TKV, int ROWS, bool SELF, bool I8 = false>
 __global__ void __launch_bounds__(threads_of(SELF)) attend(const Args a) {
   constexpr int NT = threads_of(SELF), NW = NT / 32;
-  constexpr int E = sizeof(TKV);
-  constexpr int VEC = 16 / E;  // positions in 16 bytes
+  constexpr int BITS = kv_bits<TKV>();
+  constexpr int VEC = 128 / BITS;  // positions in 16 bytes
+  constexpr int GB = BITS / 2;     // bytes of a group of 4 positions
+  static_assert(!I8 || (sizeof(TQ) == 4 && BITS == 8 && !SELF), "8x8 takes fp32 q, int8 K/V");
   const int C = a.cluster;
   const int rank = C > 1 ? (int)cg::this_cluster().block_rank() : 0;
   const int bh = blockIdx.x / C, b = bh / a.H, h = bh % a.H;
   const int row0 = SELF ? 0 : (int)blockIdx.y * ROWS;  // this tile's first query row
   const int R = SELF ? 1 : min(a.R - row0, ROWS);
-  const int span = a.span, span_b = span * E;
+  const int span = a.span, span_b = span * BITS / 8;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
 
   extern __shared__ __align__(16) uint8_t smem[];
@@ -251,6 +305,8 @@ __global__ void __launch_bounds__(threads_of(SELF)) attend(const Args a) {
   float* stat = red + NW * ROWS * 2;       // [ROWS, 2] this CTA's, read by the cluster
   float* md = stat + ROWS * 2;             // [ROWS, 2] the row max and denominator over all T
   float* cur = md + ROWS * 2;              // self: the current token's logit
+  int* q8 = reinterpret_cast<int*>(cur + 4);  // 8x8: [ROWS, D / 4] int8 q, 4 d a word
+  float* qsc = reinterpret_cast<float*>(q8 + ROWS * D / 4);  // 8x8: [ROWS] qmax / 127
 
   // this CTA's positions [tb, te), staged as [ta, ta + n) on 16-byte bounds
   const int lo = SELF && a.valid_from != nullptr ? max(a.valid_from[b], 0) : 0;
@@ -269,9 +325,12 @@ __global__ void __launch_bounds__(threads_of(SELF)) attend(const Args a) {
                   : 0.f;
   }
   const int nch = n / VEC;
-  stage<NT>(ks, static_cast<const TKV*>(a.k) + b * a.ksb + h * a.ksh + ta, a.ksd, span_b, nch);
-  const TKV* vg = static_cast<const TKV*>(a.v) + b * a.vsb + h * a.vsh + ta;
-  if (!one_tile(SELF)) stage<NT>(vs, vg, a.vsd, span_b, nch);
+  constexpr int ES = sizeof(TKV);  // bytes of a storage element (strides count these)
+  const long long ta_b = (long long)ta * BITS / 8;
+  stage<NT>(ks, static_cast<const uint8_t*>(a.k) + (b * a.ksb + h * a.ksh) * ES + ta_b,
+            a.ksd * ES, span_b, nch);
+  const uint8_t* vg = static_cast<const uint8_t*>(a.v) + (b * a.vsb + h * a.vsh) * ES + ta_b;
+  if (!one_tile(SELF)) stage<NT>(vs, vg, a.vsd * ES, span_b, nch);
 #pragma unroll
   for (int j = 0; j < QPT; ++j) {
     const int i = tid + j * NT;
@@ -279,6 +338,29 @@ __global__ void __launch_bounds__(threads_of(SELF)) attend(const Args a) {
   }
   copy_wait<one_tile(SELF) ? 0 : 1>();  // K
   __syncthreads();
+  if constexpr (I8) {
+    // warp r quantizes q row r as the JAX model does: q / qmax * 127,
+    // rounded half to even and clipped, qmax = max |q| + 1e-12
+    if (warp < R) {
+      const float x0 = qf[warp * QSTRIDE + q_at(lane)], x1 = qf[warp * QSTRIDE + q_at(lane + 32)];
+      float mx = fmaxf(fabsf(x0), fabsf(x1));
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, shfl(mx, off));
+      const float qmax = mx + 1e-12f;
+      auto quant = [qmax](float x) {
+        return (uint32_t)(uint8_t)(int8_t)fminf(fmaxf(rintf(x / qmax * 127.f), -127.f), 127.f);
+      };
+      // lanes 0-15 pack d 4 lane .. 4 lane + 3 into one word
+      if (lane < 16) {
+        uint32_t w = 0;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) w |= quant(qf[warp * QSTRIDE + q_at(4 * lane + j)]) << (8 * j);
+        q8[warp * (D / 4) + lane] = (int)w;
+      }
+      if (lane == 0) qsc[warp] = qmax / 127.f;
+    }
+    __syncthreads();
+  }
   if (SELF && warp == 0) {
     const TQ* kt = static_cast<const TQ*>(a.kt) + b * a.ktsb + h * a.ktsh;
     float c = qf[q_at(lane)] * to_f(kt[lane]) + qf[q_at(lane + 32)] * to_f(kt[lane + 32]);
@@ -303,17 +385,48 @@ __global__ void __launch_bounds__(threads_of(SELF)) attend(const Args a) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[r][j] = 0.f;
     if (act) {
+      if constexpr (I8) {
+        // int8 x int8: 4 d rows at a time, their bytes transposed to one
+        // word a position; the integer partials (|x| < 2^18) are exact in fp32
+        int si[ROWS][4];
 #pragma unroll
-      for (int i = 0; i < 16; ++i) {
-        const int d = 16 * quarter + i;
-        float kv[4];
-        load4(reinterpret_cast<const TKV*>(ks + row_off(d, span_b)) + 4 * g, kv);
+        for (int r = 0; r < ROWS; ++r)
 #pragma unroll
-        for (int r = 0; r < ROWS; ++r) {
-          if (r < R) {
-            const float qd = qf[r * QSTRIDE + q_at(d)];
+          for (int j = 0; j < 4; ++j) si[r][j] = 0;
 #pragma unroll
-            for (int j = 0; j < 4; ++j) s[r][j] = fmaf(qd, kv[j], s[r][j]);
+        for (int i = 0; i < 16; i += 4) {
+          const int d = 16 * quarter + i;
+          uint32_t w[4], t[4];
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            w[k] = *reinterpret_cast<const uint32_t*>(ks + row_off(d + k, span_b) + g * GB);
+          transpose4(w, t);
+#pragma unroll
+          for (int r = 0; r < ROWS; ++r) {
+            if (r < R) {
+              const int qw = q8[r * (D / 4) + d / 4];
+#pragma unroll
+              for (int j = 0; j < 4; ++j) si[r][j] = __dp4a((int)t[j], qw, si[r][j]);
+            }
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < ROWS; ++r)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) s[r][j] = (float)si[r][j];
+      } else {
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+          const int d = 16 * quarter + i;
+          float kv[4];
+          load4(reinterpret_cast<const TKV*>(ks + row_off(d, span_b) + g * GB), kv);
+#pragma unroll
+          for (int r = 0; r < ROWS; ++r) {
+            if (r < R) {
+              const float qd = qf[r * QSTRIDE + q_at(d)];
+#pragma unroll
+              for (int j = 0; j < 4; ++j) s[r][j] = fmaf(qd, kv[j], s[r][j]);
+            }
           }
         }
       }
@@ -323,7 +436,8 @@ __global__ void __launch_bounds__(threads_of(SELF)) attend(const Args a) {
 #pragma unroll
     for (int r = 0; r < ROWS; ++r) {
       if (r < R) {
-        const float x = reduce4(s[r], quarter);
+        float x = reduce4(s[r], quarter);
+        if constexpr (I8) x *= qsc[r];  // the exact int32 dot, then qmax / 127
         if (act) ps[r * span + 4 * g + quarter] = valid ? x : -INFINITY;
         if (valid) stat_add(m_run[r], l_run[r], x);
       }
@@ -345,7 +459,7 @@ __global__ void __launch_bounds__(threads_of(SELF)) attend(const Args a) {
     }
   }
   __syncthreads();
-  if (one_tile(SELF)) stage<NT>(vs, vg, a.vsd, span_b, nch);  // K is read: V into its tile
+  if (one_tile(SELF)) stage<NT>(vs, vg, a.vsd * ES, span_b, nch);  // K is read: V into its tile
   if (tid < R) {
     float m = red[tid * 2], l = red[tid * 2 + 1];
     for (int w = 1; w < NW; ++w) stat_merge(m, l, red[(w * ROWS + tid) * 2], red[(w * ROWS + tid) * 2 + 1]);
@@ -365,15 +479,27 @@ __global__ void __launch_bounds__(threads_of(SELF)) attend(const Args a) {
   }
   __syncthreads();
 
-  // probabilities: exp(s - max) / sum, then rounded to the compute dtype
+  // probabilities: exp(s - max) / sum, then rounded to the compute dtype;
+  // 8x8: quantized to int8 against the row's largest probability (exp(0) /
+  // sum), the 4 of a group packed into the group's first slot
   for (int i = tid; i < R * groups; i += NT) {
     const int r = i / groups, g = i - r * groups;
     float4* p4 = reinterpret_cast<float4*>(ps + r * span + 4 * g);
     float4 p = *p4;
     const float m = md[r * 2], den = md[r * 2 + 1];
-    p.x = round_as<TQ>(expf(p.x - m) / den); p.y = round_as<TQ>(expf(p.y - m) / den);
-    p.z = round_as<TQ>(expf(p.z - m) / den); p.w = round_as<TQ>(expf(p.w - m) / den);
-    *p4 = p;
+    if constexpr (I8) {
+      const float pmax = 1.f / den + 1e-12f;
+      const float pr[4] = {expf(p.x - m) / den, expf(p.y - m) / den, expf(p.z - m) / den,
+                           expf(p.w - m) / den};
+      uint32_t w = 0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) w |= (uint32_t)(uint8_t)(int8_t)rintf(pr[j] / pmax * 127.f) << (8 * j);
+      reinterpret_cast<int*>(p4)[0] = (int)w;
+    } else {
+      p.x = round_as<TQ>(expf(p.x - m) / den); p.y = round_as<TQ>(expf(p.y - m) / den);
+      p.z = round_as<TQ>(expf(p.z - m) / den); p.w = round_as<TQ>(expf(p.w - m) / den);
+      *p4 = p;
+    }
   }
   copy_wait<0>();  // V
   __syncthreads();
@@ -384,38 +510,56 @@ __global__ void __launch_bounds__(threads_of(SELF)) attend(const Args a) {
   float* part0 = C > 1 ? cg::this_cluster().map_shared_rank(part, 0) : part;
   const int sub = ((lane >> 4) & 1) * 4 + ((lane >> 3) & 1) * 2 + ((lane >> 2) & 1);
   constexpr int RB = ROWS < 4 ? ROWS : 4;  // query rows per pass over V
+  using Acc = typename std::conditional<I8, int, float>::type;
   for (int rb = 8 * warp; rb < D; rb += 8 * NW) {
 #pragma unroll
     for (int r0 = 0; r0 < ROWS; r0 += RB) {
       if (r0 >= R) break;
-      float acc[RB][8];
+      Acc acc[RB][8];
 #pragma unroll
       for (int r = 0; r < RB; ++r)
 #pragma unroll
-        for (int i = 0; i < 8; ++i) acc[r][i] = 0.f;
-      for (int g = lane; g < groups; g += 32) {
-        float vv[8][4];
+        for (int i = 0; i < 8; ++i) acc[r][i] = 0;
+      if constexpr (I8) {
+        // p8 of positions 4g..4g+3 (0 outside [tb, te)) against 4 bytes of
+        // each V row: exact int32 sums
+        for (int g = lane; g < groups; g += 32) {
 #pragma unroll
-        for (int i = 0; i < 8; ++i)
-          load4(reinterpret_cast<const TKV*>(vs + row_off(rb + i, span_b)) + 4 * g, vv[i]);
-        const int t0 = ta + 4 * g;
-        if (t0 < tb || t0 + 4 > te) {  // a group on an edge: drop the bytes staged past it
+          for (int r = 0; r < RB; ++r) {
+            if (r0 + r < R) {
+              const int pw = reinterpret_cast<const int*>(ps + (r0 + r) * span + 4 * g)[0];
 #pragma unroll
-          for (int j = 0; j < 4; ++j)
-            if (t0 + j < tb || t0 + j >= te)
-#pragma unroll
-              for (int i = 0; i < 8; ++i) vv[i][j] = 0.f;
+              for (int i = 0; i < 8; ++i)
+                acc[r][i] = __dp4a(pw, *reinterpret_cast<const int*>(
+                                           vs + row_off(rb + i, span_b) + g * GB), acc[r][i]);
+            }
+          }
         }
+      } else {
+        for (int g = lane; g < groups; g += 32) {
+          float vv[8][4];
 #pragma unroll
-        for (int r = 0; r < RB; ++r) {
-          if (r0 + r < R) {
-            const float4 p = *reinterpret_cast<const float4*>(ps + (r0 + r) * span + 4 * g);
+          for (int i = 0; i < 8; ++i)
+            load4(reinterpret_cast<const TKV*>(vs + row_off(rb + i, span_b) + g * GB), vv[i]);
+          const int t0 = ta + 4 * g;
+          if (t0 < tb || t0 + 4 > te) {  // a group on an edge: drop the bytes staged past it
 #pragma unroll
-            for (int i = 0; i < 8; ++i) {
-              acc[r][i] = fmaf(p.x, vv[i][0], acc[r][i]);
-              acc[r][i] = fmaf(p.y, vv[i][1], acc[r][i]);
-              acc[r][i] = fmaf(p.z, vv[i][2], acc[r][i]);
-              acc[r][i] = fmaf(p.w, vv[i][3], acc[r][i]);
+            for (int j = 0; j < 4; ++j)
+              if (t0 + j < tb || t0 + j >= te)
+#pragma unroll
+                for (int i = 0; i < 8; ++i) vv[i][j] = 0.f;
+          }
+#pragma unroll
+          for (int r = 0; r < RB; ++r) {
+            if (r0 + r < R) {
+              const float4 p = *reinterpret_cast<const float4*>(ps + (r0 + r) * span + 4 * g);
+#pragma unroll
+              for (int i = 0; i < 8; ++i) {
+                acc[r][i] = fmaf(p.x, vv[i][0], acc[r][i]);
+                acc[r][i] = fmaf(p.y, vv[i][1], acc[r][i]);
+                acc[r][i] = fmaf(p.z, vv[i][2], acc[r][i]);
+                acc[r][i] = fmaf(p.w, vv[i][3], acc[r][i]);
+              }
             }
           }
         }
@@ -423,8 +567,8 @@ __global__ void __launch_bounds__(threads_of(SELF)) attend(const Args a) {
 #pragma unroll
       for (int r = 0; r < RB; ++r) {
         if (r0 + r < R) {
-          const float x = reduce_rows8(acc[r], lane);
-          if ((lane & 3) == 0) part0[(rank * ROWS + r0 + r) * D + rb + sub] = x;
+          const Acc x = reduce_rows8(acc[r], lane);
+          if ((lane & 3) == 0) reinterpret_cast<Acc*>(part0)[(rank * ROWS + r0 + r) * D + rb + sub] = x;
         }
       }
     }
@@ -441,18 +585,24 @@ __global__ void __launch_bounds__(threads_of(SELF)) attend(const Args a) {
     for (int i = tid; i < R * D; i += NT) {
       const int r = i / D, d = i % D;
       float s = 0.f;
-      for (int c = 0; c < C; ++c) s += part[(c * ROWS + r) * D + d];
+      if constexpr (I8) {
+        int si = 0;
+        for (int c = 0; c < C; ++c) si += reinterpret_cast<const int*>(part)[(c * ROWS + r) * D + d];
+        s = (float)si * ((1.f / md[r * 2 + 1] + 1e-12f) / 127.f);  // * pmax / 127
+      } else {
+        for (int c = 0; c < C; ++c) s += part[(c * ROWS + r) * D + d];
+      }
       if (SELF) s += p_cur * to_f(vt[d]);
       a.o[b * a.osb + (row0 + r) * a.osr + h * a.osh + d] = s;
     }
   }
 }
 
-template <typename TQ, typename TKV, int ROWS, bool SELF>
+template <typename TQ, typename TKV, int ROWS, bool SELF, bool I8 = false>
 int launch(const Args& a, int B, cudaStream_t st) {
-  const size_t smem = smem_bytes(SELF, a.span, sizeof(TKV), ROWS, a.cluster);
+  const size_t smem = smem_bytes(SELF, a.span, a.span * kv_bits<TKV>() / 8, ROWS, a.cluster, I8);
   if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
-  auto kern = attend<TQ, TKV, ROWS, SELF>;
+  auto kern = attend<TQ, TKV, ROWS, SELF, I8>;
   // once per kernel and device (function attributes belong to a device's
   // context): the largest dynamic shared memory any split may ask for, and
   // all of the SM's L1 / shared split given to shared memory
@@ -486,59 +636,95 @@ int launch(const Args& a, int B, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-// a split the kernels were built for: C in {1, 2, 4, 8}, spans on 16
-// positions, covering [0, hi)
-bool split_ok(int hi, int cluster, int span) {
+// a split the kernels were built for: C in {1, 2, 4, 8}, spans on `align`
+// positions (16 bytes of packed int4, at least 16 bytes otherwise), covering [0, hi)
+bool split_ok(int hi, int cluster, int span, int align = SPAN_ALIGN) {
   return (cluster == 1 || cluster == 2 || cluster == 4 || cluster == 8) &&
-         span >= SPAN_ALIGN && span % SPAN_ALIGN == 0 && (long long)cluster * span >= hi;
+         span >= align && span % align == 0 && (long long)cluster * span >= hi;
 }
 
-// K/V rows the 16-byte copies can read: every row on 16 bytes, at least `hi` long
-bool rows_ok(const void* p, long long sb, long long sh, long long sd, int elem, int hi) {
+// K/V rows the 16-byte copies can read: every row on 16 bytes, at least
+// `hi_b` bytes long (strides count `elem`-byte storage elements)
+bool rows_ok(const void* p, long long sb, long long sh, long long sd, int elem, long long hi_b) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0 && (sb * elem) % 16 == 0 &&
-         (sh * elem) % 16 == 0 && (sd * elem) % 16 == 0 && sd >= hi;
+         (sh * elem) % 16 == 0 && (sd * elem) % 16 == 0 && sd * elem >= hi_b;
 }
 
+// bytes of a storage element, and bits of a position, by dtype code
 int elem_size(int dtype) { return dtype == 0 ? 4 : dtype == 1 ? 2 : 1; }
+int pos_bits(int dtype) { return dtype == 4 ? 4 : 8 * elem_size(dtype); }
 
 // the tile's row count: 1, 4 or 8 (any R above 8 runs tiles of 8)
-template <typename TQ, typename TKV>
+template <typename TQ, typename TKV, bool I8 = false>
 int cross(const Args& a, int B, cudaStream_t st) {
-  if (a.R == 1) return launch<TQ, TKV, 1, false>(a, B, st);
-  if (a.R <= 4) return launch<TQ, TKV, 4, false>(a, B, st);
-  return launch<TQ, TKV, MAX_ROWS, false>(a, B, st);
+  if (a.R == 1) return launch<TQ, TKV, 1, false, I8>(a, B, st);
+  if (a.R <= 4) return launch<TQ, TKV, 4, false, I8>(a, B, st);
+  return launch<TQ, TKV, MAX_ROWS, false, I8>(a, B, st);
+}
+
+// the checks and arguments every cross entry shares
+bool cross_args(Args& a, int kv_dtype, int B, int H, int R, int T, int cluster, int span,
+                const void* q, long long qsb, long long qsr, long long qsh,
+                const void* k, long long ksb, long long ksh, long long ksd,
+                const void* v, long long vsb, long long vsh, long long vsd,
+                void* o, long long osb, long long osr, long long osh) {
+  const int es = elem_size(kv_dtype), bits = pos_bits(kv_dtype);
+  const long long hi_b = ((long long)T * bits + 7) / 8;
+  if (B < 1 || H < 1 || R < 1 || R > MAX_ROWS * MAX_TILES || T < 1 ||
+      !split_ok(T, cluster, span, bits == 4 ? SPAN_ALIGN4 : SPAN_ALIGN) ||
+      !rows_ok(k, ksb, ksh, ksd, es, hi_b) || !rows_ok(v, vsb, vsh, vsd, es, hi_b))
+    return false;
+  a.q = q; a.qsb = qsb; a.qsr = qsr; a.qsh = qsh;
+  a.k = k; a.ksb = ksb; a.ksh = ksh; a.ksd = ksd;
+  a.v = v; a.vsb = vsb; a.vsh = vsh; a.vsd = vsd;
+  a.o = (float*)o; a.osb = osb; a.osr = osr; a.osh = osh;
+  a.H = H; a.R = R; a.hi = T; a.span = span; a.cluster = cluster;
+  return true;
 }
 
 }  // namespace
 
-// dtype codes: 0 float32, 1 bfloat16, 2 int8, 3 float8_e4m3fn.
+// dtype codes: 0 float32, 1 bfloat16, 2 int8, 3 float8_e4m3fn, 4 int4 packed
+// two positions a byte (uint8 storage; strides in bytes, T in positions).
 extern "C" int twt_cross_attention(
     int q_dtype, int kv_dtype, int B, int H, int R, int T, int cluster, int span,
     const void* q, long long qsb, long long qsr, long long qsh,
     const void* k, long long ksb, long long ksh, long long ksd,
     const void* v, long long vsb, long long vsh, long long vsd,
     void* o, long long osb, long long osr, long long osh, void* stream) {
-  const int es = elem_size(kv_dtype);
-  if (R < 1 || R > MAX_ROWS * MAX_TILES || T < 1 || !split_ok(T, cluster, span) ||
-      !rows_ok(k, ksb, ksh, ksd, es, T) || !rows_ok(v, vsb, vsh, vsd, es, T))
-    return (int)cudaErrorInvalidValue;
   Args a{};
-  a.q = q; a.qsb = qsb; a.qsr = qsr; a.qsh = qsh;
-  a.k = k; a.ksb = ksb; a.ksh = ksh; a.ksd = ksd;
-  a.v = v; a.vsb = vsb; a.vsh = vsh; a.vsd = vsd;
-  a.o = (float*)o; a.osb = osb; a.osr = osr; a.osh = osh;
-  a.H = H; a.R = R; a.hi = T; a.span = span; a.cluster = cluster;
+  if (!cross_args(a, kv_dtype, B, H, R, T, cluster, span, q, qsb, qsr, qsh, k, ksb, ksh, ksd,
+                  v, vsb, vsh, vsd, o, osb, osr, osh))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (q_dtype == 1) {
     if (kv_dtype == 1) return cross<__nv_bfloat16, __nv_bfloat16>(a, B, st);
     if (kv_dtype == 2) return cross<__nv_bfloat16, int8_t>(a, B, st);
     if (kv_dtype == 3) return cross<__nv_bfloat16, __nv_fp8_e4m3>(a, B, st);
+    if (kv_dtype == 4) return cross<__nv_bfloat16, int4x2_t>(a, B, st);
   } else if (q_dtype == 0) {
     if (kv_dtype == 0) return cross<float, float>(a, B, st);
     if (kv_dtype == 2) return cross<float, int8_t>(a, B, st);
     if (kv_dtype == 3) return cross<float, __nv_fp8_e4m3>(a, B, st);
+    if (kv_dtype == 4) return cross<float, int4x2_t>(a, B, st);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// The "8x8" variant: fp32 q (1/sqrt(d) and the K scale folded in) over int8
+// K/V, int8 x int8 dots; the output is the P V sum times pmax / 127, before
+// the V scale.
+extern "C" int twt_cross_attention_int8_dots(
+    int B, int H, int R, int T, int cluster, int span,
+    const void* q, long long qsb, long long qsr, long long qsh,
+    const void* k, long long ksb, long long ksh, long long ksd,
+    const void* v, long long vsb, long long vsh, long long vsd,
+    void* o, long long osb, long long osr, long long osh, void* stream) {
+  Args a{};
+  if (!cross_args(a, 2, B, H, R, T, cluster, span, q, qsb, qsr, qsh, k, ksb, ksh, ksd,
+                  v, vsb, vsh, vsd, o, osb, osr, osh))
+    return (int)cudaErrorInvalidValue;
+  return cross<float, int8_t, true>(a, B, (cudaStream_t)stream);
 }
 
 extern "C" int twt_self_attention(
@@ -550,8 +736,9 @@ extern "C" int twt_self_attention(
     const void* cv, long long cvsb, long long cvsh, long long cvsd,
     const void* valid_from, void* o, void* stream) {
   const int es = elem_size(dtype);
-  if (index < 0 || !split_ok(index, cluster, span) || !rows_ok(ck, cksb, cksh, cksd, es, index) ||
-      !rows_ok(cv, cvsb, cvsh, cvsd, es, index))
+  if (index < 0 || !split_ok(index, cluster, span) ||
+      !rows_ok(ck, cksb, cksh, cksd, es, (long long)index * es) ||
+      !rows_ok(cv, cvsb, cvsh, cvsd, es, (long long)index * es))
     return (int)cudaErrorInvalidValue;
   Args a{};
   a.q = q; a.qsb = qsb; a.qsr = 0; a.qsh = qsh;

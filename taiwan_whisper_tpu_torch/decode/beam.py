@@ -39,6 +39,7 @@ import torch
 
 from ..models import whisper as M
 from ..models.config import DtypePolicy, WhisperConfig, resolve_device
+from .greedy import cross_kv_mode
 from .rules import DecodeRules, apply_rules
 
 NEG_INF = float(np.finfo(np.float32).min) / 2
@@ -108,13 +109,13 @@ def beam_decode(params, enc_out: torch.Tensor, prefix: torch.Tensor, config: Whi
     suppress = torch.from_numpy(rules.suppress_mask()).to(dev)
     begin_suppress = torch.from_numpy(rules.begin_suppress_mask()).to(dev)
 
-    cross_kv = M.precompute_cross_kv(params, enc_out, config, policy,
-                                     quantize=quantize_cross_kv)
+    quantize, int8_dots = cross_kv_mode(quantize_cross_kv)
+    cross_kv = M.precompute_cross_kv(params, enc_out, config, policy, quantize=quantize)
     cache = M.init_cache(config, b * k, max_len, dtype=policy.compute_dtype, device=dev)
     spare = M.init_cache(config, b * k, max_len, dtype=policy.compute_dtype, device=dev)
     prefix_rep = prefix.repeat_interleave(k, dim=0)
     logits, sot_logits = M.prefill(params, cross_kv, cache, prefix_rep, config, policy,
-                                   aux_index=sot_index, beams=k)
+                                   aux_index=sot_index, beams=k, int8_dots=int8_dots)
     # the beams are identical at prefill: one no-speech probe per item
     no_speech_probs = torch.softmax(sot_logits[::k], dim=-1)[:, rules.no_speech]
 
@@ -177,7 +178,7 @@ def beam_decode(params, enc_out: torch.Tensor, prefix: torch.Tensor, config: Whi
 
         cache, spare = reorder_cache(cache, spare, (new_beam + item_base).view(-1), i)
         logits = M.decode_step(params, cross_kv, cache, new_tok.view(-1), i, config, policy,
-                               beams=k)
+                               beams=k, int8_dots=int8_dots)
         cur = i + 1
 
     # finalisation: items not done enter their alive beams at the final length

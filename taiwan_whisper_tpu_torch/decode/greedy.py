@@ -37,6 +37,16 @@ class DecodeResult:
     no_speech_probs: torch.Tensor  # [B] fp32
 
 
+def cross_kv_mode(quantize_cross_kv):
+    """(``precompute_cross_kv``'s ``quantize``, ``int8_dots``) of a decoder's
+    ``quantize_cross_kv``: 0/False off, True/8 int8, 4 int4, "fp8" e4m3,
+    "8x8" int8 storage read by the int8 x int8 variant of the cross kernel."""
+    if not quantize_cross_kv:
+        return 0, False
+    return (quantize_cross_kv if quantize_cross_kv in (4, "fp8") else 8,
+            quantize_cross_kv == "8x8")
+
+
 def _sample(masked: torch.Tensor, temperature: float,
             generator: torch.Generator) -> torch.Tensor:
     """One token per row drawn from softmax(masked / temperature): [B] int64."""
@@ -56,7 +66,7 @@ def greedy_decode(params, enc_out: torch.Tensor, prefix: torch.Tensor,
     [B, T_enc, d], prefix [B, P] (the sot sequence, after any prompt).
     ``params`` are prepared for ``device`` (cuda unless given; raises when
     CUDA is absent). ``generator`` (on ``device``; seed 0 when not given)
-    draws the samples."""
+    draws the samples. ``quantize_cross_kv`` as in ``cross_kv_mode``."""
     dev = resolve_device(device)
     enc_out = enc_out.to(dev)
     prefix = prefix.to(dev)
@@ -68,11 +78,12 @@ def greedy_decode(params, enc_out: torch.Tensor, prefix: torch.Tensor,
     suppress = torch.from_numpy(rules.suppress_mask()).to(dev)
     begin_suppress = torch.from_numpy(rules.begin_suppress_mask()).to(dev)
 
-    cross_kv = M.precompute_cross_kv(params, enc_out, config, policy,
-                                     quantize=quantize_cross_kv)
+    quantize, int8_dots = cross_kv_mode(quantize_cross_kv)
+    cross_kv = M.precompute_cross_kv(params, enc_out, config, policy, quantize=quantize)
     cache = M.init_cache(config, b, max_len, dtype=policy.compute_dtype, device=dev)
     logits, sot_logits = M.prefill(params, cross_kv, cache, prefix, config, policy,
-                                   valid_from=valid_from, aux_index=sot_index)
+                                   valid_from=valid_from, aux_index=sot_index,
+                                   int8_dots=int8_dots)
     # P(<|nospeech|>) at the <|startoftranscript|> position
     no_speech_probs = torch.softmax(sot_logits, dim=-1)[:, rules.no_speech]
 
@@ -106,7 +117,7 @@ def greedy_decode(params, enc_out: torch.Tensor, prefix: torch.Tensor,
         tokens[:, i] = nxt
         finished |= nxt == eot
         logits = M.decode_step(params, cross_kv, cache, nxt, i, config, policy,
-                               valid_from=valid_from)
+                               valid_from=valid_from, int8_dots=int8_dots)
         if (step + 1) % _POLL_EVERY == 0 and bool(finished.all()):
             break
     return DecodeResult(tokens=tokens, lengths=lengths, sum_logprobs=sum_logprobs,

@@ -25,8 +25,12 @@ Differences from the JAX package, by design:
   during the step either way), and ``prefill`` fills ``[0, P)`` in place;
 * ``remat`` checkpoints each layer with ``torch.utils.checkpoint`` only
   while autograd records (under ``no_grad`` it would buy nothing);
-* ``extend`` and the int4 / "8x8" cross-KV modes wait for later slices
-  and raise NotImplementedError.
+* int4 cross K/V is stored packed two positions a byte (uint8; PyTorch has
+  no int4 dtype), and ``QuantCrossKV.length`` carries the logical length;
+* ``extend`` writes its P tokens' K/V into the cache in place, as the
+  other decoder entry points do, and takes neither ``beams`` nor
+  ``int8_dots``: speculative decoding, its one caller, runs batch 1 over
+  unquantized cross K/V.
 """
 
 from __future__ import annotations
@@ -39,7 +43,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import attention_plain, encoder_attention
-from ..ops.decode_attention import cross_attention, self_attention, time_minor_zeros
+from ..ops.decode_attention import (cross_attention, cross_attention_int8_dots, pack_int4,
+                                    self_attention, time_minor_zeros)
 from .config import DtypePolicy, WhisperConfig
 
 Params = Dict[str, Any]
@@ -212,11 +217,6 @@ def forward(params: Params, mel: torch.Tensor, tokens: torch.Tensor, config: Whi
     return decode_train(params, encode(params, mel, config, policy), tokens, config, policy)
 
 
-def extend(*args, **kwargs):
-    raise NotImplementedError(
-        "extend waits for the speculative-decoding slice (ROADMAP Queue A)")
-
-
 # ---------------------------------------------------------------------------
 # decoder: incremental decode with the time-minor KV cache
 # ---------------------------------------------------------------------------
@@ -248,10 +248,12 @@ class QuantCrossKV:
     """Quantized cross-attention K/V with per-(layer, batch, head, channel)
     scales; the K scale folds into q and the V scale into the output."""
 
-    k_q: torch.Tensor  # [L, B, H, Dh, T] int8 / float8_e4m3fn (time-minor)
+    k_q: torch.Tensor  # [L, B, H, Dh, T] int8 / float8_e4m3fn (time-minor);
+    # int4: uint8 [L, B, H, Dh, ceil(T / 2)], two positions a byte
     k_scale: torch.Tensor  # [L, B, H, Dh, 1] fp32
     v_q: torch.Tensor
     v_scale: torch.Tensor
+    length: Optional[int] = None  # T of packed int4 storage
 
 
 CrossKV = Union[Tuple[torch.Tensor, torch.Tensor], QuantCrossKV]
@@ -259,29 +261,30 @@ CrossKV = Union[Tuple[torch.Tensor, torch.Tensor], QuantCrossKV]
 
 def _quantize_kv_slice(x: torch.Tensor, bits):
     """Symmetric per-channel quantization of a time-minor K or V tensor
-    (reduction over the minor time axis)."""
+    (reduction over the minor time axis). int4 comes back packed two
+    positions a byte (``ops.decode_attention.pack_int4``)."""
     if bits == 8 or bits is True:
         qmax, store = 127.0, torch.int8
+    elif bits == 4:
+        qmax, store = 7.0, torch.int8
     elif bits == "fp8":
         qmax, store = 448.0, torch.float8_e4m3fn
-    elif bits == 4 or bits == "8x8":
-        raise NotImplementedError(
-            f"quantize={bits!r} cross-KV waits for a later slice (ROADMAP Queue A)")
     else:
-        raise ValueError(f"bits must be 8 or 'fp8', got {bits!r}")
+        raise ValueError(f"bits must be 8, 4 or 'fp8', got {bits!r}")
     xf = x.float()
     m = xf.abs().amax(dim=-1, keepdim=True)
     scale = m / qmax + 1e-12
     xs = xf / scale
     if bits != "fp8":  # fp8's cast rounds natively; ints need round+clip
         xs = torch.clamp(torch.round(xs), -qmax, qmax)
-    return xs.to(store), scale
+    xs = xs.to(store)
+    return (pack_int4(xs) if bits == 4 else xs), scale
 
 
 def precompute_cross_kv(params: Params, enc_out: torch.Tensor, config: WhisperConfig,
                         policy: DtypePolicy = DtypePolicy(), *, quantize=0) -> CrossKV:
     """Cross-attention K/V of all layers, time-minor [L, B, H, Dh, T] in
-    row-padded storage (a QuantCrossKV when ``quantize`` is 8/True or
+    row-padded storage (a QuantCrossKV when ``quantize`` is 8/True, 4 or
     "fp8"), written layer by layer so the fp32 transient stays one layer's
     size."""
     dtype = policy.compute_dtype
@@ -306,39 +309,45 @@ def precompute_cross_kv(params: Params, enc_out: torch.Tensor, config: WhisperCo
         ks[i] = k
         vs[i] = v
     if quantize:
-        return QuantCrossKV(k_q=ks, k_scale=torch.stack(k_scales),
-                            v_q=vs, v_scale=torch.stack(v_scales))
+        return QuantCrossKV(k_q=ks, k_scale=torch.stack(k_scales), v_q=vs,
+                            v_scale=torch.stack(v_scales),
+                            length=enc.shape[1] if quantize == 4 else None)
     return ks, vs
 
 
 def _cross_layer(cross_kv: CrossKV, layer: int):
+    """One layer's (k, k scale, v, v scale, int4 length): the scales are
+    None for unquantized K/V, the length None but for packed int4."""
     if isinstance(cross_kv, QuantCrossKV):
         return (cross_kv.k_q[layer], cross_kv.k_scale[layer],
-                cross_kv.v_q[layer], cross_kv.v_scale[layer])
-    return cross_kv[0][layer], cross_kv[1][layer]
+                cross_kv.v_q[layer], cross_kv.v_scale[layer], cross_kv.length)
+    return cross_kv[0][layer], None, cross_kv[1][layer], None, None
 
 
-def _cross_attention(q: torch.Tensor, cross_slice, dtype, beams: int = 1) -> torch.Tensor:
+def _cross_attention(q: torch.Tensor, cross_slice, dtype, beams: int = 1,
+                     int8_dots: bool = False) -> torch.Tensor:
     """q [B, Sq, H, Dh] against one layer's cross K/V [B, H, Dh, T]
-    (plain or quantized). 1/sqrt(d) and the K scale fold into q in fp32
+    (``_cross_layer``'s tuple, plain or quantized). 1/sqrt(d) and the K scale fold into q in fp32
     before one cast to the compute dtype; the V scale multiplies the fp32
     attention output. ``beams``: q arrives beam-flat [B*K, Sq, H, Dh]
     against K/V stored once per item, and the beams fold into the query
-    axis, [B, K*Sq, H, Dh], so every beam reads the same K/V."""
+    axis, [B, K*Sq, H, Dh], so every beam reads the same K/V.
+    ``int8_dots`` on int8 storage: the "8x8" route, the folded fp32 q
+    straight into the kernel's int8 x int8 variant."""
     if beams > 1:
         bk, sq, nh, dh = q.shape
         q = q.reshape(bk // beams, beams * sq, nh, dh)
     scale = q.shape[-1] ** -0.5
-    if len(cross_slice) == 4:
-        kq, ks, vq, vs = cross_slice
-        qs = (q.float() * scale * ks.permute(0, 3, 1, 2)).to(dtype)
-    else:
-        kq, vq = cross_slice
-        vs = None
-        qs = (q * scale).to(dtype)
-    att = cross_attention(qs, kq, vq)  # fp32 [B, Sq, H, Dh]
-    if vs is not None:
+    kq, ks, vq, vs, t = cross_slice
+    if ks is not None:  # quantized
+        qf = q.float() * scale * ks.permute(0, 3, 1, 2)
+        if int8_dots and kq.dtype == torch.int8:
+            att = cross_attention_int8_dots(qf, kq, vq)
+        else:
+            att = cross_attention(qf.to(dtype), kq, vq, t)
         att = att * vs.permute(0, 3, 1, 2)
+    else:
+        att = cross_attention((q * scale).to(dtype), kq, vq)  # fp32 [B, Sq, H, Dh]
     if beams > 1:
         att = att.reshape(bk, sq, nh, dh)
     return att.to(dtype)
@@ -365,10 +374,12 @@ def _cached_self_attn(lp: Params, h: torch.Tensor, cache_k: torch.Tensor,
 def decode_step(params: Params, cross_kv: CrossKV, cache: KVCache,
                 token: torch.Tensor, index: int, config: WhisperConfig,
                 policy: DtypePolicy = DtypePolicy(), *,
-                valid_from: Optional[torch.Tensor] = None, beams: int = 1) -> torch.Tensor:
+                valid_from: Optional[torch.Tensor] = None, beams: int = 1,
+                int8_dots: bool = False) -> torch.Tensor:
     """One decoder step for ``token`` ([B] or [B, 1]) at position
     ``index``; updates ``cache`` in place and returns fp32 logits [B, vocab].
-    ``beams``: rows per cross-K/V item (beam search: B = items x beams)."""
+    ``beams``: rows per cross-K/V item (beam search: B = items x beams).
+    ``int8_dots``: the "8x8" cross attention over int8 cross K/V."""
     p = params["decoder"]
     dtype = policy.compute_dtype
     n_heads = config.decoder_attention_heads
@@ -381,7 +392,7 @@ def decode_step(params: Params, cross_kv: CrossKV, cache: KVCache,
                                   n_heads, dtype, valid_from)
         h = _layer_norm(lp["cross_attn_ln"], x)
         q = _split_heads(_dense(lp["cross_attn"]["q"], h), n_heads)
-        att = _cross_attention(q, _cross_layer(cross_kv, i), dtype, beams)
+        att = _cross_attention(q, _cross_layer(cross_kv, i), dtype, beams, int8_dots)
         x = x + _dense(lp["cross_attn"]["out"], _merge_heads(att))
         h = _layer_norm(lp["final_ln"], x)
         x = x + _dense(lp["fc2"], _gelu(_dense(lp["fc1"], h)))
@@ -392,12 +403,14 @@ def decode_step(params: Params, cross_kv: CrossKV, cache: KVCache,
 def prefill(params: Params, cross_kv: CrossKV, cache: KVCache, tokens: torch.Tensor,
             config: WhisperConfig, policy: DtypePolicy = DtypePolicy(), *,
             valid_from: Optional[torch.Tensor] = None,
-            aux_index: int = 0, beams: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+            aux_index: int = 0, beams: int = 1,
+            int8_dots: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Run the prompt [B, P] through the decoder in one pass, filling
     cache[..., 0:P] in place. Returns (fp32 logits at the last prompt
     position [B, vocab], fp32 logits at ``aux_index`` [B, vocab] — the
-    no-speech probe at <|startoftranscript|>). ``beams`` as in
-    ``decode_step``: the cross kernel then takes K*P query rows an item."""
+    no-speech probe at <|startoftranscript|>). ``beams`` and ``int8_dots``
+    as in ``decode_step``: the cross kernel then takes K*P query rows an
+    item."""
     p = params["decoder"]
     dtype = policy.compute_dtype
     n_heads = config.decoder_attention_heads
@@ -419,10 +432,52 @@ def prefill(params: Params, cross_kv: CrossKV, cache: KVCache, tokens: torch.Ten
         cache.v[i, ..., :pl_len] = v.permute(0, 2, 3, 1)
         h = _layer_norm(lp["cross_attn_ln"], x)
         q = _split_heads(_dense(lp["cross_attn"]["q"], h), n_heads)
-        att = _cross_attention(q, _cross_layer(cross_kv, i), dtype, beams)
+        att = _cross_attention(q, _cross_layer(cross_kv, i), dtype, beams, int8_dots)
         x = x + _dense(lp["cross_attn"]["out"], _merge_heads(att))
         h = _layer_norm(lp["final_ln"], x)
         x = x + _dense(lp["fc2"], _gelu(_dense(lp["fc1"], h)))
     x = _layer_norm(p["ln_post"], x)
     both = _lm_head(p["embed_tokens"], torch.stack([x[:, -1], x[:, aux_index]], dim=1))
     return both[:, 0], both[:, 1]
+
+
+def extend(params: Params, cross_kv: CrossKV, cache: KVCache, tokens: torch.Tensor,
+           offset: int, config: WhisperConfig, policy: DtypePolicy = DtypePolicy()
+           ) -> torch.Tensor:
+    """Multi-token decode: P ``tokens`` [B, P] at positions offset ..
+    offset + P - 1 against a cache valid below ``offset``, in one pass; the
+    verification step of speculative decoding. Their K/V go into
+    cache[..., offset:offset + P] in place; query i sees the cache keys at
+    positions <= offset + i (plain ``torch`` attention over the whole cache,
+    masked, as the JAX model's einsums do); the cross kernel takes the P
+    rows. Returns fp32 logits [B, P, vocab]."""
+    p = params["decoder"]
+    dtype = policy.compute_dtype
+    n_heads = config.decoder_attention_heads
+    plen = tokens.shape[1]
+    s = cache.max_len
+    if not 0 <= offset <= s - plen:
+        raise ValueError(f"extend writes positions {offset}..{offset + plen - 1} of a "
+                         f"{s}-position cache")
+    x = p["embed_tokens"][tokens] + p["embed_positions"][offset:offset + plen]
+    key_pos = torch.arange(s, device=tokens.device)
+    q_pos = offset + torch.arange(plen, device=tokens.device)
+    mask = (key_pos[None, :] <= q_pos[:, None])[None, None]  # [1, 1, P, S]
+    for i, lp in enumerate(p["layers"]):
+        h = _layer_norm(lp["self_attn_ln"], x)
+        a = lp["self_attn"]
+        q = _split_heads(_dense(a["q"], h), n_heads)
+        k = _split_heads(_dense(a["k"], h), n_heads)
+        v = _split_heads(_dense(a["v"], h), n_heads)
+        ck, cv = cache.k[i], cache.v[i]
+        ck[..., offset:offset + plen] = k.permute(0, 2, 3, 1)
+        cv[..., offset:offset + plen] = v.permute(0, 2, 3, 1)
+        att = attention_plain(q, ck.permute(0, 3, 1, 2), cv.permute(0, 3, 1, 2), mask)
+        x = x + _dense(a["out"], _merge_heads(att))
+        h = _layer_norm(lp["cross_attn_ln"], x)
+        q = _split_heads(_dense(lp["cross_attn"]["q"], h), n_heads)
+        att = _cross_attention(q, _cross_layer(cross_kv, i), dtype)
+        x = x + _dense(lp["cross_attn"]["out"], _merge_heads(att))
+        h = _layer_norm(lp["final_ln"], x)
+        x = x + _dense(lp["fc2"], _gelu(_dense(lp["fc1"], h)))
+    return _lm_head(p["embed_tokens"], _layer_norm(p["ln_post"], x))

@@ -5,12 +5,16 @@ taiwan_whisper_tpu/pipeline/evaluate.py).
   or beam search with ``num_beams`` > 1;
 * sequential and chunked: one long-form decode a file
   (decode/longform.py);
+* speculative: each utterance padded or trimmed to 30 s, encoded by the
+  teacher and by the assistant (the draft model), then
+  ``speculative_decode`` (batch 1, its default of 5 draft tokens a round:
+  the CLI sets no other, so ``EvalConfig`` carries no draft count), to the
+  teacher's positions;
 * metrics: MixErrorRate (separate-language: EN-WER and ZH-CER beside the
   MER), RTF = wall / audio seconds, audio seconds per second.
 
 The ground truth is the first line of the .txt beside each audio file,
-markers stripped. Speculative decoding waits for a later slice (ROADMAP
-Queue A 5).
+markers stripped.
 """
 
 from __future__ import annotations
@@ -29,8 +33,11 @@ from ..audio.manifest import read_manifest
 from ..audio.mel import SAMPLE_RATE, pad_or_trim
 from ..decode.longform import chunked_decode, decode_audio, sequential_decode
 from ..decode.rules import DecodeRules
+from ..decode.speculative import speculative_decode
+from ..models import whisper as M
 from ..models.config import DtypePolicy, WhisperConfig, resolve_device
 from ..models.params import prepare_params
+from ..ops.mel_kernel import log_mel
 from ..text.metrics import MixErrorRate
 from ..text.normalizer import BasicTextNormalizer
 from ..text.tokenizer import WhisperTokenizer, strip_markers
@@ -78,14 +85,14 @@ def _decode_short_batch(params, config: WhisperConfig, tok: WhisperTokenizer,
 def evaluate_manifest(params, config: WhisperConfig, tok: WhisperTokenizer,
                       manifest_path: str, cfg: EvalConfig = EvalConfig(), *,
                       policy: DtypePolicy = DtypePolicy(), output_dir: Optional[str] = None,
-                      device=None) -> EvalResult:
+                      assistant: Optional[tuple] = None, device=None) -> EvalResult:
     """Decode every file of the manifest in ``cfg.mode`` on ``device`` (cuda
     unless given) and score it; with ``output_dir``, also write
-    ``eval_predictions.tsv`` (path, hyp, ref)."""
-    if cfg.mode == "speculative":
-        raise NotImplementedError(
-            "mode='speculative' waits for a later slice (ROADMAP Queue A 5)")
-    if cfg.mode not in ("short", "sequential", "chunked"):
+    ``eval_predictions.tsv`` (path, hyp, ref). The speculative mode needs
+    ``assistant`` = (params, config) of the draft model."""
+    if cfg.mode == "speculative" and assistant is None:
+        raise ValueError("mode='speculative' needs assistant=(params, config)")
+    if cfg.mode not in ("short", "sequential", "chunked", "speculative"):
         raise ValueError(f"mode must be short, sequential, chunked or speculative, "
                          f"got {cfg.mode!r}")
     dev = resolve_device(device)
@@ -99,7 +106,26 @@ def evaluate_manifest(params, config: WhisperConfig, tok: WhisperTokenizer,
     predictions: List[str] = []
     audio_seconds = 0.0
     t0 = time.time()
-    if cfg.mode == "short":
+    if cfg.mode == "speculative":
+        a_params, a_config = assistant
+        a_params = prepare_params(a_params, policy, dev)
+        n_window = config.max_source_positions * 2 * 160
+        prefix = torch.tensor([tok.sot_sequence(cfg.language, cfg.task, timestamps=True)],
+                              dtype=torch.int32, device=dev)
+        for p in audio_paths:
+            raw = load_audio_16k(p)
+            audio_seconds += min(len(raw), n_window) / SAMPLE_RATE
+            wave = torch.from_numpy(pad_or_trim(raw, n_window)[None]).to(dev)
+            with torch.inference_mode():
+                t_enc = M.encode(params, log_mel(wave, config.num_mel_bins), config, policy)
+                s_enc = M.encode(a_params, log_mel(wave, a_config.num_mel_bins), a_config,
+                                 policy)
+            res = speculative_decode(params, config, a_params, a_config, t_enc, s_enc, prefix,
+                                     rules, policy, max_len=config.max_target_positions,
+                                     device=dev)
+            ids = res.tokens[0, sot_len: sot_len + res.length].tolist()
+            predictions.append(tok.decode(ids, skip_special_tokens=True))
+    elif cfg.mode == "short":
         n_window = config.max_source_positions * 2 * 160
         bs = cfg.batch_size
         with cf.ThreadPoolExecutor(max_workers=4) as pool:

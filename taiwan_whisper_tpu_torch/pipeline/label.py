@@ -19,9 +19,15 @@ files share one scorer call. ``strategy="sequential"`` and
 ``chunked_decode`` over each VAD region, timestamps shifted back to the
 file's timeline.
 
+With an assistant (a draft model: ``run_labelling(assistant_dir=)``,
+``cli label --assistant``) every file goes file by file through
+``_speculative_chunked``: one strided 30 s window at a time, the student
+drafting and the teacher verifying (decode/speculative.py), the encoder
+shared when the two models' encoders have the same width and depth.
+
 ``run_labelling`` also labels a ground-truth split when given one and
 scores the pseudo-labels against it (``validate_labels``: MER, EN-WER,
-ZH-CER). Speculative decoding waits for a later slice (ROADMAP Queue A 5).
+ZH-CER).
 """
 
 from __future__ import annotations
@@ -44,8 +50,11 @@ from ..audio.mel import SAMPLE_RATE
 from ..decode.longform import (LongformResult, _tokens_to_segments, chunk_with_stride,
                                chunked_decode, decode_audio, sequential_decode)
 from ..decode.rules import DecodeRules
+from ..decode.speculative import speculative_decode
+from ..models import whisper as M
 from ..models.config import DtypePolicy, WhisperConfig, resolve_device
 from ..models.params import prepare_params
+from ..ops.mel_kernel import log_mel
 from ..text.tokenizer import WhisperTokenizer
 from .vad import (_VAD_CALL_SEGS, _VAD_SEG_SAMPLES, detect_speech_regions,
                   resolve_vad_mode, spectral_regions_device_batch)
@@ -72,7 +81,7 @@ class LabelConfig:
     # scorer; "energy" is the RMS-only gate; "off" decodes the whole file.
     vad_regions: bool = True
     vad_mode: str = "spectral"
-    quantize_kv: object = False  # 0/False off; True/8 int8; "fp8" e4m3
+    quantize_kv: object = False  # 0/False off; True/8 int8; 4 int4; "fp8" e4m3; "8x8"
     num_beams: int = 1  # >1: beam search (the reference labels with beam 5)
     # chunked strategy: pool chunks across VAD regions and files into full
     # device batches; False labels file by file through chunked_decode
@@ -98,6 +107,9 @@ class LabelConfig:
     # label_resident.CAP_SEGS); smaller groups seal, and start decoding,
     # sooner
     group_segs: Optional[int] = None
+    # speculative decoding, with a draft model (label_files(assistant=...),
+    # cli --assistant): tokens the draft model proposes a round
+    num_draft_tokens: int = 5
 
 
 def energy_vad_is_speech(audio: np.ndarray, threshold: float) -> bool:
@@ -131,9 +143,6 @@ class _ChunkTask:
 
 
 def _check_supported(cfg: LabelConfig):
-    if cfg.quantize_kv in (4, "8x8"):
-        raise NotImplementedError(
-            f"quantize_kv={cfg.quantize_kv!r} waits for a later slice (ROADMAP Queue A 4)")
     if cfg.strategy not in ("chunked", "sequential"):
         raise ValueError(f"strategy must be chunked or sequential, got {cfg.strategy!r}")
     if cfg.wire_dtype not in ("int16", "float32"):
@@ -185,19 +194,21 @@ def label_files(
     *,
     device=None,
     log_every: int = 10,
+    assistant=None,
 ) -> dict:
     """Transcribe each file to <output_dir>/<stem>.csv; returns stats. Runs
     on ``device`` (cuda unless given). The chunked strategy with pooling
     follows ``cfg.wire_mode`` as in the JAX package: resident when asked, or
     under "auto" when the VAD mode allows it; a resident request with
-    another VAD mode raises. The sequential strategy, or ``pooled=False``,
-    labels file by file."""
+    another VAD mode raises. The sequential strategy, ``pooled=False``, or
+    an ``assistant`` ((params, config) of a draft model: speculative
+    decoding) labels file by file."""
     dev = resolve_device(device)
     _check_supported(cfg)
     os.makedirs(output_dir, exist_ok=True)
-    if cfg.strategy != "chunked" or not cfg.pooled:
+    if cfg.strategy != "chunked" or not cfg.pooled or assistant is not None:
         return _label_files_per_file(params, config, tok, audio_paths, output_dir, cfg, policy,
-                                     device=dev, log_every=log_every)
+                                     device=dev, log_every=log_every, assistant=assistant)
     resident_ok = (cfg.wire_mode in ("auto", "resident")
                    and (not cfg.vad_regions
                         or cfg.vad_mode in ("spectral", "spectral-device", "off")))
@@ -402,17 +413,25 @@ def _label_files_pooled(params, config: WhisperConfig, tok: WhisperTokenizer,
 
 def _label_files_per_file(params, config: WhisperConfig, tok: WhisperTokenizer,
                           audio_paths: Sequence[str], output_dir: str, cfg: LabelConfig,
-                          policy: DtypePolicy, *, device: torch.device, log_every: int) -> dict:
+                          policy: DtypePolicy, *, device: torch.device, log_every: int,
+                          assistant=None) -> dict:
     """One file at a time: each VAD region (or the whole file) through
-    ``chunked_decode`` or ``sequential_decode``, its segments shifted back
-    by the region's start and the file's segments sorted by start. A file
-    below the energy threshold gets an empty CSV and is not counted; an
-    unreadable file is skipped and counted in ``failed``."""
+    ``chunked_decode`` or ``sequential_decode`` (``_speculative_chunked``
+    with an ``assistant``), its segments shifted back by the region's start
+    and the file's segments sorted by start. A file below the energy
+    threshold gets an empty CSV and is not counted; an unreadable file is
+    skipped and counted in ``failed``. Speculative runs add the mean draft
+    accept rate over windows (``draft_accept_rate``), the windows and the
+    teacher's rounds to the stats."""
     params = prepare_params(params, policy, device)
     stats = dict(files=0, skipped=0, failed=0, audio_seconds=0.0)
+    spec_windows: List[tuple] = []  # (accept rate, rounds) of each speculative window
     t0 = time.time()
 
     def decode_span(span: np.ndarray) -> LongformResult:
+        if assistant is not None:
+            return _speculative_chunked(params, config, assistant, span, tok, policy, cfg,
+                                        device, spec_windows)
         if cfg.strategy == "chunked":
             return chunked_decode(params, span, config, tok, policy, language=cfg.language,
                                   task=cfg.task, batch_size=cfg.batch_size, chunk_s=cfg.chunk_s,
@@ -458,17 +477,66 @@ def _label_files_per_file(params, config: WhisperConfig, tok: WhisperTokenizer,
             print(f"[label] {stats['files']}/{len(audio_paths)} files, {rate:.1f} audio-s/s")
     stats["wall_seconds"] = time.time() - t0
     stats["device"] = str(device)
+    if assistant is not None:
+        stats.update(draft_accept_rate=float(np.mean([r for r, _ in spec_windows]))
+                     if spec_windows else 0.0, spec_windows=len(spec_windows),
+                     spec_rounds=sum(n for _, n in spec_windows))
     return stats
+
+
+def _speculative_chunked(params, config: WhisperConfig, assistant, audio: np.ndarray,
+                         tok: WhisperTokenizer, policy: DtypePolicy, cfg: LabelConfig, device,
+                         spec_windows: list) -> LongformResult:
+    """Chunked long-form labelling by speculative decoding, one strided
+    window at a time: log-mel (kernel) and the teacher's encode, the
+    student's own mel and encode unless it shares the teacher's encoder
+    (same width and depth), then ``speculative_decode``; each window's
+    segments that start inside its core are kept, as in the chunk path.
+    Appends (draft accept rate, rounds) of each window to ``spec_windows``."""
+    a_params, a_config = assistant
+    special = tok.special
+    rules = DecodeRules.from_special(special, timestamps=True)
+    sot_seq = tok.sot_sequence(cfg.language, cfg.task, timestamps=True)
+    chunk_s = cfg.chunk_s or config.max_source_positions * 2 * 160 / SAMPLE_RATE
+    stride_s = cfg.stride_s if cfg.stride_s is not None else chunk_s / 6.0
+    max_len = len(sot_seq) + cfg.max_decode_tokens if cfg.max_decode_tokens else None
+    shared_encoder = (a_config.d_model == config.d_model
+                      and a_config.encoder_layers == config.encoder_layers)
+    prefix = torch.tensor([sot_seq], dtype=torch.int32, device=device)
+
+    segments = []
+    for chunk, offset, sl, sr in chunk_with_stride(audio, chunk_s, stride_s, stride_s):
+        wave = torch.from_numpy(chunk[None]).to(device)
+        with torch.inference_mode():
+            t_enc = M.encode(params, log_mel(wave, config.num_mel_bins), config, policy)
+            s_enc = t_enc if shared_encoder else M.encode(
+                a_params, log_mel(wave, a_config.num_mel_bins), a_config, policy)
+        res = speculative_decode(params, config, a_params, a_config, t_enc, s_enc, prefix,
+                                 rules, policy, num_draft_tokens=cfg.num_draft_tokens,
+                                 max_len=max_len, device=device)
+        spec_windows.append((res.draft_accept_rate, res.rounds))
+        sampled = res.tokens[0, len(sot_seq): len(sot_seq) + res.length].tolist()
+        window_dur = min(chunk_s, len(audio) / SAMPLE_RATE - offset)
+        segs, _, _ = _tokens_to_segments(sampled, special, offset, window_dur)
+        lo, hi = offset + sl, offset + chunk_s - sr
+        for s in segs:
+            if (s.start >= lo or sl == 0.0) and (s.start < hi or sr == 0.0):
+                segments.append(s)
+    segments.sort(key=lambda s: s.start)
+    return LongformResult(segments=segments)
 
 
 def run_labelling(manifest_path: str, model_dir: str, output_dir: str,
                   cfg: LabelConfig = LabelConfig(), tokenizer_dir: Optional[str] = None,
+                  assistant_dir: Optional[str] = None,
                   validation_manifest: Optional[str] = None, *,
                   policy: DtypePolicy = DtypePolicy(), device=None) -> dict:
     """CLI entry: load the model and label every file of the manifest.
-    With ``validation_manifest`` (a labelled split: audio with transcript
-    txts beside it) the split is labelled too and the pseudo-labels are
-    scored against its transcripts (``stats["validation"]``)."""
+    ``assistant_dir`` loads a draft model on the same device and switches
+    on speculative decoding. With
+    ``validation_manifest`` (a labelled split: audio with transcript txts
+    beside it) the split is labelled too and the pseudo-labels are scored
+    against its transcripts (``stats["validation"]``)."""
     from ..models.io import load_model
 
     _check_supported(cfg)
@@ -477,17 +545,24 @@ def run_labelling(manifest_path: str, model_dir: str, output_dir: str,
     params = prepare_params(params, policy, dev)  # once for both runs
     tok = (WhisperTokenizer.from_pretrained_dir(tokenizer_dir)
            if tokenizer_dir else WhisperTokenizer())
+    assistant = None
+    if assistant_dir:
+        a_params, a_config = load_model(assistant_dir)
+        assistant = (prepare_params(a_params, policy, dev), a_config)
     paths = read_manifest(manifest_path).absolute_paths()
-    stats = label_files(params, config, tok, paths, output_dir, cfg, policy, device=dev)
+    stats = label_files(params, config, tok, paths, output_dir, cfg, policy, device=dev,
+                        assistant=assistant)
     if validation_manifest:
         stats["validation"] = validate_labels(params, config, tok, validation_manifest,
-                                              output_dir, cfg, policy, device=dev)
+                                              output_dir, cfg, policy, device=dev,
+                                              assistant=assistant)
     return stats
 
 
 def validate_labels(params, config: WhisperConfig, tok: WhisperTokenizer,
                     validation_manifest: str, output_dir: str, cfg: LabelConfig,
-                    policy: DtypePolicy = DtypePolicy(), *, device=None) -> dict:
+                    policy: DtypePolicy = DtypePolicy(), *, device=None,
+                    assistant=None) -> dict:
     """Label a ground-truth split through the same path as the production
     files, into ``<output_dir>/validation/``, and score each file's CSV text
     (normalized) against the first line of its transcript txt (markers
@@ -502,7 +577,8 @@ def validate_labels(params, config: WhisperConfig, tok: WhisperTokenizer,
     v_txt = vman.transcript_paths()
     val_dir = os.path.join(output_dir, "validation")
     os.makedirs(val_dir, exist_ok=True)
-    label_files(params, config, tok, v_audio, val_dir, cfg, policy, device=device, log_every=0)
+    label_files(params, config, tok, v_audio, val_dir, cfg, policy, device=device, log_every=0,
+                assistant=assistant)
     normalizer = BasicTextNormalizer()
     preds, refs = [], []
     for apath, tpath in zip(v_audio, v_txt):

@@ -8,6 +8,12 @@
     # one batch of configs/label_large_v2_beam.args (beam 5, int8)
     python -m taiwan_whisper_tpu_torch.tools.profile_label --batch 8 --quantize 8 \
         --num_beams 5 [--prompt_tokens 223]
+    # int4 (packed) or "8x8" (int8 x int8 dots) cross K/V in the greedy step
+    python -m taiwan_whisper_tpu_torch.tools.profile_label --quantize 4
+    python -m taiwan_whisper_tpu_torch.tools.profile_label --quantize 8x8
+    # one speculative window: the 32-2 student drafts, large-v2 verifies
+    python -m taiwan_whisper_tpu_torch.tools.profile_label --assistant \
+        [--num_draft_tokens 5] [--tokens 192]
 
 Random bf16 weights from a seed, one batch of 30 s chunks of random audio.
 Times each stage of ``pipeline.label.decode_batch`` with the host clock
@@ -27,6 +33,15 @@ The VAD stage: the device spectral scorer on one call of 8 segments of
 call with the copies to and from the card, and the seconds the VAD keeps
 of the seconds in. Prints one JSON object as its last line; writes the
 trace under ``chiprun_out/``.
+
+``--assistant`` profiles one speculative window instead (batch 1, one
+30 s chunk, ``--tokens`` sampled tokens): the 32-2 student
+(``init_student_from_teacher``, sharing the encoder) drafts
+``--num_draft_tokens`` tokens a round and the teacher verifies them with
+``extend``. Its wall, rounds, accept rate, launches (the kernels' counters
+and the host's launch calls, from torch.profiler) and device busy share,
+then the same window with each student step, each ``extend`` and each
+rule pick synchronised on both sides: ms per call of each.
 """
 
 from __future__ import annotations
@@ -41,12 +56,14 @@ import numpy as np
 import torch
 
 from ..audio.mel import N_SAMPLES
+from ..decode import speculative as S
 from ..decode.beam import beam_decode
-from ..decode.greedy import greedy_decode
+from ..decode.greedy import cross_kv_mode, greedy_decode
 from ..decode.rules import DecodeRules
 from ..models import whisper as M
 from ..models.config import DtypePolicy, get_config, resolve_device
-from ..models.params import init_params, prepare_params
+from ..models.params import init_params, init_student_from_teacher, prepare_params
+from ..ops import attention, decode_attention, mel_kernel
 from ..ops.mel_kernel import log_mel
 from ..pipeline import vad
 from ..text.tokenizer import WhisperTokenizer
@@ -125,6 +142,74 @@ def loop_window(decode, budget: int) -> dict:
                          for ms, c, k in rows[:20]])
 
 
+def speculative_window(params, cfg, pol, audio, sot, rules, tokens: int, drafts: int,
+                       dev) -> dict:
+    """One speculative window at ``cfg`` with its 2-decoder-layer student:
+    see the module docstring."""
+    scfg = cfg.with_decoder_layers(2)
+    student = init_student_from_teacher(params, cfg, 2)
+    prefix = torch.tensor([sot], dtype=torch.int32, device=dev)
+    with torch.inference_mode():
+        enc = M.encode(params, log_mel(audio[:1], cfg.num_mel_bins), cfg, pol)
+
+    def window():
+        return S.speculative_decode(params, cfg, student, scfg, enc, enc, prefix, rules, pol,
+                                    num_draft_tokens=drafts, max_len=len(sot) + tokens,
+                                    device=dev)
+
+    window()  # warm-up
+    counters = {"cross": decode_attention.cross_attention,
+                "self": decode_attention.self_attention, "mel": mel_kernel.log10_mel_spectrum,
+                "encoder": attention.encoder_attention}
+    for fn in counters.values():
+        fn.launches = 0
+    decode_attention.cross_attention.launches_by_rows = {}
+    res, wall_ms = _timed(window)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    launches["cross_by_rows"] = dict(decode_attention.cross_attention.launches_by_rows)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        window()
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t0) * 1e3
+    kernels, launch_calls, _ = _device_kernels(prof)
+    busy_ms = sum(ms for ms, _ in kernels.values())
+
+    # each part synchronised on both sides: its own ms per call
+    parts = {"student_step": [], "teacher_step": [], "extend": [], "pick": []}
+    saved = M.decode_step, M.extend, S.apply_rules
+
+    def synced(name_of, fn):
+        def call(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            parts[name_of(args)].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return call
+
+    M.decode_step = synced(lambda a: "student_step" if a[0] is student else "teacher_step",
+                           saved[0])
+    M.extend = synced(lambda a: "extend", saved[1])
+    S.apply_rules = synced(lambda a: "pick", saved[2])
+    try:
+        _, synced_ms = _timed(window)
+    finally:
+        M.decode_step, M.extend, S.apply_rules = saved
+    top = sorted(((ms, n, k) for k, (ms, n) in kernels.items()), reverse=True)[:12]
+    return dict(tokens=res.length, rounds=res.rounds, draft_accept_rate=res.draft_accept_rate,
+                num_draft_tokens=drafts, wall_ms=wall_ms, ms_per_round=wall_ms / res.rounds,
+                launches=launches, launch_calls=launch_calls,
+                launch_calls_per_round=launch_calls / res.rounds, traced_ms=traced_ms,
+                device_busy_ms=busy_ms, idle_share=1.0 - busy_ms / traced_ms,
+                synced_wall_ms=synced_ms,
+                parts_ms={k: float(np.mean(v)) if v else None for k, v in parts.items()},
+                parts_calls={k: len(v) for k, v in parts.items()},
+                top_kernels=[dict(name=k[:120], ms=ms, calls=n) for ms, n, k in top])
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--preset", default="large-v2")
@@ -133,8 +218,12 @@ def main(argv=None):
     ap.add_argument("--quantize", default="fp8")
     ap.add_argument("--num_beams", type=int, default=1)
     ap.add_argument("--prompt_tokens", type=int, default=0)
+    ap.add_argument("--assistant", action="store_true",
+                    help="profile one speculative window (batch 1) instead")
+    ap.add_argument("--num_draft_tokens", type=int, default=5)
     args = ap.parse_args(argv)
-    quantize = {"0": 0, "8": 8}.get(args.quantize, args.quantize)
+    quantize = {"0": 0, "8": 8, "4": 4}.get(args.quantize, args.quantize)
+    bits, int8_dots = cross_kv_mode(quantize)
 
     dev = resolve_device("cuda")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -156,6 +245,20 @@ def main(argv=None):
     gen = torch.Generator(device=dev).manual_seed(0)
     audio = torch.randn((args.batch, N_SAMPLES), generator=gen, device=dev) * 0.1
     max_len = p_len + args.tokens
+    if args.assistant:
+        spec = speculative_window(params, cfg, pol, audio, sot, rules, args.tokens,
+                                  args.num_draft_tokens, dev)
+        print(card)
+        print(f"speculative window ({args.preset} + its 2-layer student, k "
+              f"{args.num_draft_tokens}, {spec['tokens']} tokens): {spec['wall_ms']:.1f} ms, "
+              f"{spec['rounds']} rounds ({spec['ms_per_round']:.2f} ms each), accept rate "
+              f"{spec['draft_accept_rate']:.4f}, {spec['launch_calls_per_round']:.1f} launch "
+              f"calls a round, device idle {100 * spec['idle_share']:.1f}%; synchronised ms per "
+              "call: " + ", ".join(f"{k} {v:.3f}" for k, v in spec["parts_ms"].items() if v))
+        for row in spec["top_kernels"]:
+            print(f"  {row['ms']:9.3f} ms  {row['calls']:6d}  {row['name'][:90]}")
+        print(json.dumps({"card": card, "preset": args.preset, "speculative": spec}))
+        return
 
     def decode(enc, budget):
         kw = dict(max_len=p_len + budget, sot_index=len(prompt), quantize_cross_kv=quantize,
@@ -169,12 +272,13 @@ def main(argv=None):
             mel, t_mel = _timed(lambda: log_mel(audio, cfg.num_mel_bins))
             enc, t_enc = _timed(lambda: M.encode(params, mel, cfg, pol))
             kv, t_kv = _timed(lambda: M.precompute_cross_kv(params, enc, cfg, pol,
-                                                            quantize=quantize))
+                                                            quantize=bits))
             cache = M.init_cache(cfg, args.batch * k, p_len + budget, dtype=pol.compute_dtype,
                                  device=dev)
             _, t_pre = _timed(lambda: M.prefill(params, kv, cache,
                                                 prefix.repeat_interleave(k, dim=0), cfg, pol,
-                                                aux_index=len(prompt), beams=k))
+                                                aux_index=len(prompt), beams=k,
+                                                int8_dots=int8_dots))
             del kv, cache
             res, t_all = _timed(lambda: decode(enc, budget))
         return res, dict(mel_ms=t_mel, encode_ms=t_enc, cross_kv_ms=t_kv,
@@ -195,18 +299,20 @@ def main(argv=None):
     # trace a window of decode steps
     with torch.inference_mode():
         enc = M.encode(params, log_mel(audio, cfg.num_mel_bins), cfg, pol)
-        kv = M.precompute_cross_kv(params, enc, cfg, pol, quantize=quantize)
+        kv = M.precompute_cross_kv(params, enc, cfg, pol, quantize=bits)
         cache = M.init_cache(cfg, args.batch * k, max_len, dtype=pol.compute_dtype, device=dev)
-        M.prefill(params, kv, cache, prefix.repeat_interleave(k, dim=0), cfg, pol, beams=k)
+        M.prefill(params, kv, cache, prefix.repeat_interleave(k, dim=0), cfg, pol, beams=k,
+                  int8_dots=int8_dots)
         token = prefix[:, -1].repeat_interleave(k)
         for i in range(p_len, p_len + 2):
-            M.decode_step(params, kv, cache, token, i, cfg, pol, beams=k)
+            M.decode_step(params, kv, cache, token, i, cfg, pol, beams=k, int8_dots=int8_dots)
         torch.cuda.synchronize()
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) as prof:
             t0 = time.perf_counter()
             for i in range(p_len + 2, p_len + 2 + STEPS_TRACED):
-                M.decode_step(params, kv, cache, token, i, cfg, pol, beams=k)
+                M.decode_step(params, kv, cache, token, i, cfg, pol, beams=k,
+                              int8_dots=int8_dots)
             torch.cuda.synchronize()
             window_ms = (time.perf_counter() - t0) * 1e3
         loop = loop_window(lambda n: decode(enc, n), min(args.tokens, 24))

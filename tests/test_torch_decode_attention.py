@@ -66,8 +66,10 @@ def test_cross_layer_matches_jax_model(quantize, sq):
     else:
         jslice = (jnp.asarray(k), jnp.asarray(v))
     ref = np.asarray(JM._cross_attention(jnp.asarray(q), jslice, jnp.float32))
-    ours = M._cross_attention(torch.from_numpy(q), tuple(_t(x) for x in jslice),
-                              torch.float32)
+    ours_slice = tuple(_t(x) for x in jslice)
+    if not quantize:  # the port's layer tuple: (k, k scale, v, v scale, int4 length)
+        ours_slice = (ours_slice[0], None, ours_slice[1], None)
+    ours = M._cross_attention(torch.from_numpy(q), ours_slice + (None,), torch.float32)
     np.testing.assert_allclose(ours.numpy(), ref, atol=1e-5)
 
 

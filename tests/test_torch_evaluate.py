@@ -132,11 +132,36 @@ def test_cli_transcribe_matches_jax_cli(tmp_path, corpus, fp32_argmax, strategy,
 
 
 def test_evaluate_speculative_raises(corpus):
+    """The speculative mode without an assistant (draft) model raises, as
+    the JAX function asserts, before any file is decoded."""
     from taiwan_whisper_tpu_torch.models.io import load_model
     from taiwan_whisper_tpu_torch.text.tokenizer import WhisperTokenizer
 
     params, config = load_model(str(corpus / "model"))
-    with pytest.raises(NotImplementedError, match="Queue A 5"):
+    with pytest.raises(ValueError, match="needs assistant"):
         port_eval.evaluate_manifest(params, config, WhisperTokenizer(),
                                     str(corpus / "test.tsv"),
                                     port_eval.EvalConfig(mode="speculative"), device="cpu")
+
+
+def test_cli_evaluate_speculative_args_matches_jax_cli(tmp_path, corpus, fp32_argmax):
+    """``cli evaluate @configs/eval_speculative.args`` (manifest, model and
+    assistant overridden): the 448-position teacher verifies what its
+    1-decoder-layer student (``init_student_from_teacher``) drafts, one
+    utterance at a time, each model encoding it; at the fp32 policy the
+    scores and ``eval_predictions.tsv`` equal the JAX CLI's."""
+    from taiwan_whisper_tpu.models.io import load_model as jax_load
+    from taiwan_whisper_tpu.models.params import init_student_from_teacher
+
+    jparams, jcfg = jax_load(str(corpus / "model448"))
+    student = init_student_from_teacher(jparams, jcfg, 1)
+    jax_save(str(tmp_path / "student"), student, jcfg.with_decoder_layers(1))
+    common = ["evaluate", f"@{os.path.join(CONFIGS, 'eval_speculative.args')}", "--manifest",
+              str(corpus / "test.tsv"), "--model", str(corpus / "model448"), "--assistant",
+              str(tmp_path / "student"), "--tokenizer_dir", str(corpus / "tok")]
+    want = jax_cli.main(common + ["--output_dir", str(tmp_path / "jax")])
+    got = port_cli.main(common + ["--output_dir", str(tmp_path / "port"), "--device", "cpu"])
+    for key in ("mer", "en_wer", "zh_cer", "n_samples"):
+        assert got[key] == want[key], key
+    assert got["n_samples"] == 2 and got["mer"] > 0
+    assert _files(str(tmp_path / "port")) == _files(str(tmp_path / "jax"))

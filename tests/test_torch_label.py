@@ -126,20 +126,22 @@ def test_cli_label_matches_label_files(tmp_path, corpus, weights):
     assert _read_csvs(cli_dir) == _read_csvs(lib_dir)
 
 
-@pytest.mark.parametrize("kw", [dict(quantize_kv=4), dict(quantize_kv="8x8")])
+@pytest.mark.parametrize("kw", [dict(strategy="greedy"), dict(wire_dtype="int8")])
 def test_unported_label_options_raise(tmp_path, weights, kw):
-    """Cross-KV storage that waits for a later slice (int4 and "8x8":
-    ROADMAP Queue A 4) raises before any file is read."""
+    """Options the port does not take raise before any file is read (int4
+    and "8x8" cross-KV, which raised here until they were ported, run in
+    test_cli_label_quantize_int4_matches_jax_cli and tests/test_torch_quant.py)."""
     _, _, params, cfg = weights
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         label_files(params, cfg, WhisperTokenizer(), [], str(tmp_path),
                     LabelConfig(**kw), device="cpu")
 
 
-@pytest.mark.parametrize("flag", [["--assistant", "draft"], ["--distributed"]])
+@pytest.mark.parametrize("flag", [["--distributed"], ["--distributed", "--assistant", "draft"]])
 def test_cli_label_refuses_unported_flags(tmp_path, flag):
-    """Label's speculative route (``--assistant``: ROADMAP Queue A 5) and
-    ``--distributed`` raise, naming the flag, before any file is read."""
+    """``--distributed`` (ROADMAP Queue A 6) raises, naming the flag, before
+    any file is read, with or without ``--assistant`` (ported: see
+    test_cli_label_assistant_matches_jax_cli)."""
     with pytest.raises(NotImplementedError, match=flag[0]):
         port_cli.main(["label", "--manifest", str(tmp_path / "none.tsv"),
                        "--model", str(tmp_path / "none"), "--output_dir", str(tmp_path),
@@ -298,4 +300,87 @@ def test_cli_label_long_form_routes_match_jax_cli(tmp_path, corpus, monkeypatch,
     port_csvs = _read_csvs(str(tmp_path / "port"))
     assert set(port_csvs) == {"f0.csv", "f1.csv"}
     assert all(csv.count(b"\n") > 2 for csv in port_csvs.values())  # segments were decoded
+    assert port_csvs == _read_csvs(str(tmp_path / "jax"))
+
+
+def test_cli_label_quantize_int4_matches_jax_cli(tmp_path, corpus, weights, monkeypatch):
+    """``cli label --quantize_kv 4`` (VAD off, the chunk route): int4 cross
+    K/V packed two positions a byte in the port, jnp.int4 in JAX; at the
+    fp32 policy the CSVs are equal."""
+    from taiwan_whisper_tpu import cli as jax_cli
+    from taiwan_whisper_tpu.models.io import save_hf_checkpoint as jax_save
+    from taiwan_whisper_tpu.pipeline import label as jax_label
+    from taiwan_whisper_tpu_torch.audio.manifest import Manifest, write_manifest
+    from taiwan_whisper_tpu_torch.pipeline import label as port_label
+
+    jparams, jcfg, _, _ = weights
+    model_dir = str(tmp_path / "model")
+    jax_save(model_dir, jparams, jcfg)
+    manifest = str(tmp_path / "m.tsv")
+    write_manifest(manifest, Manifest(root=str(corpus), paths=["a.wav", "b.wav"]))
+    common = ["label", "--manifest", manifest, "--model", model_dir, "--batch_size", "8",
+              "--vad_mode", "off", "--wire_mode", "chunks", "--quantize_kv", "4",
+              "--max_decode_tokens", "16", "--tokenizer_dir", str(corpus / "tok")]
+    monkeypatch.setattr(jax_label.label_files, "__defaults__",
+                        (JaxLabelConfig(), JaxPolicy.fp32()))
+    monkeypatch.setitem(port_label.run_labelling.__kwdefaults__, "policy",
+                        DtypePolicy.fp32())
+    jax_stats = jax_cli.main(common + ["--output_dir", str(tmp_path / "jax")])
+    stats = port_cli.main(common + ["--output_dir", str(tmp_path / "port"), "--device", "cpu"])
+    assert stats["files"] == jax_stats["files"] == 2 and stats["chunks"] == jax_stats["chunks"]
+    port_csvs = _read_csvs(str(tmp_path / "port"))
+    assert port_csvs["a.csv"].count(b"\n") > 1
+    assert port_csvs == _read_csvs(str(tmp_path / "jax"))
+
+
+@pytest.mark.parametrize("encoder", ["shared", "separate"])
+def test_cli_label_assistant_matches_jax_cli(tmp_path, corpus, monkeypatch, encoder):
+    """``cli label @configs/label_large_v2.args --assistant DIR`` on a FLAC
+    lecture with a tiny checkpoint of 30 s windows: speculative decoding
+    one strided window at a time, the draft model either the teacher's
+    1-decoder-layer student (``init_student_from_teacher``: the encoder is
+    shared) or a random model with a 2-layer encoder of its own. VAD off
+    (one span a file: the JAX route compiles once a span). At the fp32
+    policy the port writes the JAX CLI's CSVs; its stats carry the mean
+    draft accept rate."""
+    from taiwan_whisper_tpu import cli as jax_cli
+    from taiwan_whisper_tpu.models.io import save_hf_checkpoint as jax_save
+    from taiwan_whisper_tpu.models.params import init_student_from_teacher
+    from taiwan_whisper_tpu.pipeline import label as jax_label
+    from taiwan_whisper_tpu_torch.audio.io import write_flac
+    from taiwan_whisper_tpu_torch.audio.manifest import Manifest, write_manifest
+    from taiwan_whisper_tpu_torch.pipeline import label as port_label
+    from taiwan_whisper_tpu_torch.tools.synth_audio import synth_lecture
+
+    jcfg = JaxConfig(**dict(TINY, max_source_positions=1500, max_target_positions=40))
+    jparams = jax_init_params(jcfg, seed=0)
+    model_dir, draft_dir = str(tmp_path / "model"), str(tmp_path / "draft")
+    jax_save(model_dir, jparams, jcfg)
+    if encoder == "shared":
+        jax_save(draft_dir, init_student_from_teacher(jparams, jcfg, 1),
+                 jcfg.with_decoder_layers(1))
+    else:
+        dcfg = JaxConfig(**dict(TINY, max_source_positions=1500, max_target_positions=40,
+                                encoder_layers=2, decoder_layers=1))
+        jax_save(draft_dir, jax_init_params(dcfg, seed=7), dcfg)
+    audio_dir = tmp_path / "flac"
+    audio_dir.mkdir()
+    write_flac(str(audio_dir / "f0.flac"), synth_lecture(np.random.RandomState(3), 40.0))
+    manifest = str(tmp_path / "m.tsv")
+    write_manifest(manifest, Manifest(root=str(audio_dir), paths=["f0.flac"]))
+    args = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "configs", "label_large_v2.args")
+    common = ["label", f"@{args}", "--manifest", manifest, "--model", model_dir,
+              "--assistant", draft_dir, "--num_draft_tokens", "4", "--vad_mode", "off",
+              "--tokenizer_dir", str(corpus / "tok")]
+    monkeypatch.setattr(jax_label.label_files, "__defaults__",
+                        (JaxLabelConfig(), JaxPolicy.fp32()))
+    monkeypatch.setitem(port_label.run_labelling.__kwdefaults__, "policy",
+                        DtypePolicy.fp32())
+    jax_stats = jax_cli.main(common + ["--output_dir", str(tmp_path / "jax")])
+    stats = port_cli.main(common + ["--output_dir", str(tmp_path / "port"), "--device", "cpu"])
+    assert stats["files"] == jax_stats["files"] == 1 and stats["spec_windows"] == 2
+    assert 0.0 <= stats["draft_accept_rate"] <= 1.0 and stats["spec_rounds"] >= 2
+    port_csvs = _read_csvs(str(tmp_path / "port"))
+    assert port_csvs["f0.csv"].count(b"\n") > 2  # segments were decoded
     assert port_csvs == _read_csvs(str(tmp_path / "jax"))

@@ -113,13 +113,17 @@ def test_prefill_and_steps_match_jax(models, encoded, quantize):
 
 
 def test_unported_paths_raise(models):
-    """Paths later slices port (decode_train and forward are ported; see
-    test_decode_train_and_forward_match_jax)."""
+    """What the model refuses, now that every path is ported (extend and
+    the int4 / "8x8" modes: tests/test_torch_{speculative,quant}.py): extend
+    past the cache's positions, and "8x8" as a storage kind (the decoders
+    map it to int8 storage plus int8 dots, as in JAX)."""
     _, _, params, cfg = models
-    with pytest.raises(NotImplementedError):
-        M.extend(params, cfg)
-    with pytest.raises(NotImplementedError):
-        M.precompute_cross_kv(params, torch.zeros(1, 60, 64), cfg, FP32, quantize=4)
+    kv = M.precompute_cross_kv(params, torch.zeros(1, 60, 64), cfg, FP32)
+    with pytest.raises(ValueError):
+        M.extend(params, kv, M.init_cache(cfg, 1, 4, torch.float32),
+                 torch.zeros(1, 2, dtype=torch.int32), 3, cfg, FP32)
+    with pytest.raises(ValueError):
+        M.precompute_cross_kv(params, torch.zeros(1, 60, 64), cfg, FP32, quantize="8x8")
 
 
 def test_decode_train_and_forward_match_jax(models, encoded):
