@@ -3,8 +3,12 @@
     python3 chip_smoke.py            # every phase, as a release check runs it
     python3 chip_smoke.py kernels    # only the named phases
                                      # (kernels, label, label_vad, label_beam, longform,
-                                     # speculative, prefilter, train, train_agree, agree;
-                                     # mel, layer_norm: those kernels' main cases)
+                                     # speculative, prefilter, train, distributed,
+                                     # train_agree, agree; mel, layer_norm: those
+                                     # kernels' main cases)
+
+(``chip_smoke.py _rank <cli args>`` is one rank of the distributed phase's
+multi-process runs, which the phase starts itself.)
 
 Phases, each raising on failure:
 
@@ -31,13 +35,15 @@ Phases, each raising on failure:
    cross K/V, which the wrapper must refuse for fp8 and take for fp32,
    and at B = 1, counters checked too. Times kernel, plain version
    and, where one exists, the one PyTorch call that computes the same
-   function (CUDA events, median, L2 flushed before every launch); for
+   function (CUDA events, median, L2 flushed before every launch; for the
+   cross kernel on quantized storage SDPA over the dequantized K/V); for
    the bf16 attention forward, forward with LSE and backward, for the
    decode kernels at the label path's shapes (cross fp8 with 1 and 3
    rows, self bf16 at index 3, 97 and 194), for the log-mel kernel at
    32 x 30 s and for LayerNorm at the encoder's shape, also the mean of
    back-to-back calls and each kernel's device time (torch.profiler), for
-   SDPA and F.layer_norm too; for the decode, log-mel and LayerNorm
+   SDPA (the cross kernel's: on the dequantized K/V) and F.layer_norm
+   too; for the decode, log-mel and LayerNorm
    kernels the host microseconds per wrapper call and a rerun that must
    be bitwise equal, and for log-mel and LayerNorm that the wrapper's call
    launches one kernel. The cross kernel past one tile of 8 query rows
@@ -126,6 +132,22 @@ Phases, each raising on failure:
    loss must fall; launch counters are checked per run (distill: mel 1
    and encoder forward 32 per step; finetune: mel 1, encoder forward 64,
    as each checkpointed layer runs twice, and backward 32 per step).
+6b. distributed — multi-process runs of the port's CLI, every rank a
+   process of its own with the launcher's environment (RANK, WORLD_SIZE,
+   LOCAL_RANK 0, MASTER_ADDR, MASTER_PORT) and a timeout, its launch
+   counters read in the rank: ``cli label @configs/label_large_v2.args
+   --distributed`` as 2 ranks sharing the card (no device collective, so
+   no NCCL communicator) on 4 FLAC lectures of 60 s with a 64-token
+   budget, each rank labelling 2 files, the CSVs byte-equal to a
+   one-process run; ``cli prefilter @configs/prefilter_base_0.4.args
+   --distributed`` as 2 ranks on the segments of 2 lectures of 260 s,
+   disjoint non-empty hyp shards and rank 0's merged files byte-equal to a
+   one-process run; ``cli distill --distributed`` at world size 1 (the
+   data-parallel step's NCCL all-reduces) from a 32-2 student, 3 steps at
+   batch 8 with an eval batch and ``--gen_eval_batches 1``, whose losses
+   and ``hf_export`` tensors must equal the plain run's bitwise and whose
+   ``metrics.jsonl`` must hold ``eval/gen_mer`` and both prediction
+   tables; both step rates logged.
 7. train_agree — a small config (d 256, S 300: a ragged key tile) at the
    fp32 policy with TF32 off, trainable encoder: three train steps on the
    card and on the CPU plain path; losses agree to 1e-4 relative and the
@@ -818,12 +840,15 @@ def phase_kernels(torch, entries: dict, checks: list, case_rows: list, only=None
             for rows in (1, 3):
                 qs = (torch.randn((b, rows, h, D), generator=g, device=dev)
                       * q_scale).to(q_dtype)
-                lib = None
-                if kq.dtype == q_dtype or store == "int4":  # int4: SDPA on the dequantized K/V
-                    qh = qs.transpose(1, 2)
-                    kh, vh = (dequantized(DA, x, q_dtype).transpose(-1, -2) for x in (kq, vq))
-                    lib = time_ms(lambda: F.scaled_dot_product_attention(
-                        qh, kh, vh, scale=1.0), torch, flush=flush)
+                # the library: SDPA over the K/V in q's dtype (quantized
+                # storage dequantized beforehand, the scales folded out)
+                qh = qs.transpose(1, 2)
+                kh, vh = (dequantized(DA, x, q_dtype).transpose(-1, -2) for x in (kq, vq))
+
+                def sdpa():
+                    return F.scaled_dot_product_attention(qh, kh, vh, scale=1.0)
+
+                lib = time_ms(sdpa, torch, flush=flush)
                 key = f"cross_attention[{str(q_dtype)[6:]} q,{store},rows={rows}{tag}]"
                 row = record(
                     key, "cross_decode_attention", DECODE_SRC, CROSS_REP,
@@ -834,8 +859,9 @@ def phase_kernels(torch, entries: dict, checks: list, case_rows: list, only=None
                     time_ms(lambda: DA.cross_attention_plain(qs, kq, vq, T), torch, flush=flush),
                     cross_bound(qs, kq), lib)
                 if q_dtype == bf16 and store in timed:
-                    device_times(key, lambda: DA.cross_attention(qs, kq, vq, T), None, torch,
+                    device_times(key, lambda: DA.cross_attention(qs, kq, vq, T), sdpa, torch,
                                  checks, host=True)
+                del qh, kh, vh
                 if (store, rows) == entry:
                     entries["cross_decode_attention"] = row
 
@@ -1235,8 +1261,9 @@ def write_large_v2(tmp: str, torch) -> str:
 
 
 def label_launches(cfg, batches: int, tokens: int = MAX_DECODE_TOKENS) -> dict:
-    """Kernel launches of ``batches`` label batches: random weights never
-    emit eot, so every batch runs the whole token budget."""
+    """Kernel launches of ``batches`` greedy batches (label's, the
+    prefilter's): random weights never emit eot, so every batch runs the
+    whole token budget."""
     return {"mel": batches, "encoder_attention": batches * cfg.encoder_layers,
             "encoder_attention_bwd": 0,
             "cross_decode_attention": batches * cfg.decoder_layers * (1 + tokens),
@@ -1900,11 +1927,7 @@ def phase_prefilter(torch, entries: dict, results: dict):
         launches = read_counters()
         batches = -(-n // PREFILTER_BATCH)
         steps = PREFILTER_BUDGET - 3
-        expected = {"mel": batches, "encoder_attention": batches * cfg.encoder_layers,
-                    "encoder_attention_bwd": 0,
-                    "cross_decode_attention": batches * cfg.decoder_layers * (1 + steps),
-                    "self_decode_attention": batches * cfg.decoder_layers * steps,
-                    "layer_norm": 0}
+        expected = label_launches(cfg, batches, steps)
         step_ms = stats["decode_s"] / (stats["batches"] * stats["steps"]) * 1e3
         batch_step_ms = [t / stats["steps"] * 1e3 for t in stats["batch_decode_s"]]
         dropped = stats["hallucinated"] / max(stats["decisions"], 1)
@@ -2172,6 +2195,303 @@ def phase_train(torch, entries: dict, results: dict, model_dir: str):
                    dict(none, mel=FINETUNE_STEPS,
                         encoder_attention=2 * cfg.encoder_layers * FINETUNE_STEPS,
                         encoder_attention_bwd=cfg.encoder_layers * FINETUNE_STEPS))
+
+
+# the distributed phase (within 120 s): cli label --distributed as 2 ranks
+# sharing the card on 4 FLAC lectures of 60 s (64 tokens), cli prefilter
+# --distributed as 2 ranks on the segments of 2 lectures of 260 s, and cli
+# distill --distributed at world size 1 (NCCL), 3 steps at batch 8 with a
+# generation eval over one batch
+DIST_RANKS, DIST_FILES, DIST_SECONDS, DIST_TOKENS = 2, 4, 60.0, 64
+DIST_LECTURES, DIST_STEPS, DIST_BATCH = 2, 3, 8
+RANK_TIMEOUT_S = 300
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def rank_env(rank: int, world: int, port: int) -> dict:
+    """What ``torchrun`` sets for one rank; every rank on card 0."""
+    return dict(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK="0",
+                MASTER_ADDR="localhost", MASTER_PORT=str(port))
+
+
+def rank_main(argv) -> int:
+    """One rank of a multi-process run (``chip_smoke.py _rank <cli args>``):
+    the port's ``cli.main(argv)`` with the launch counters zeroed just
+    before; prints ``RANK_RESULT {"launches": ..., "result": ...}``."""
+    import torch
+
+    from taiwan_whisper_tpu_torch import cli
+
+    zero_counters()
+    result = cli.main(argv)
+    torch.cuda.synchronize()
+    print("RANK_RESULT " + json.dumps({"launches": read_counters(), "result": result}),
+          flush=True)
+    return 0
+
+
+def start_ranks(argv, world: int) -> list:
+    """``argv`` as ``world`` ranks of one run, each a process of its own on
+    card 0, started together; ``finish_ranks`` waits for them."""
+    port = _free_port()
+    return [subprocess.Popen([sys.executable, os.path.abspath(__file__), "_rank", *argv],
+                             env=dict(os.environ, **rank_env(r, world, port)),
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(world)]
+
+
+def stop_ranks(procs: list):
+    """Kill every rank still running and reap it."""
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def finish_ranks(procs: list, name: str) -> list:
+    """Each rank's (launches, result). A rank that fails or outlives
+    ``RANK_TIMEOUT_S`` fails the phase (every rank is stopped first); each
+    rank's output goes to chiprun_out/."""
+    world = len(procs)
+    os.makedirs("chiprun_out", exist_ok=True)
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=RANK_TIMEOUT_S)[0])
+    finally:
+        stop_ranks(procs)
+    for r, out in enumerate(outs):
+        with open(os.path.join("chiprun_out", f"{name}_rank{r}.log"), "w",
+                  encoding="utf-8") as f:
+            f.write(out)
+    failed = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if failed or len(outs) != world:
+        raise AssertionError(f"{name}: ranks {failed} failed:\n" + "\n".join(
+            f"--- rank {r}:\n{outs[r][-3000:] if r < len(outs) else '(no output)'}"
+            for r in failed))
+    res = []
+    for r, out in enumerate(outs):
+        [line] = [x for x in out.splitlines() if x.startswith("RANK_RESULT ")]
+        got = json.loads(line[len("RANK_RESULT "):])
+        res.append((got["launches"], got["result"]))
+    return res
+
+
+def phase_distributed(torch, entries: dict, results: dict, model_dir: str):
+    """Multi-process runs of the port's CLI. (a) ``cli label
+    @configs/label_large_v2.args --distributed`` as ``DIST_RANKS`` processes
+    sharing the card (label never reduces a device tensor, so no NCCL
+    communicator is built) on ``DIST_FILES`` FLAC lectures: each rank labels
+    its 2 files, its counters equal its batches' count, and the CSVs equal a
+    one-process run's byte for byte. (b) ``cli prefilter
+    @configs/prefilter_base_0.4.args --distributed`` as 2 ranks on the
+    segments of ``DIST_LECTURES`` lectures: disjoint, non-empty
+    ``idx_hyp.<rank>.txt`` shards, and rank 0's merged
+    ``hallucination_result.csv`` and cleaned TSV equal a one-process run's.
+    (c) ``cli distill --distributed`` at world size 1 (the NCCL all-reduces
+    of the data-parallel step on the card), ``DIST_STEPS`` steps at batch
+    ``DIST_BATCH`` with ``--eval_manifest`` and ``--gen_eval_batches 1``,
+    against the same run without ``--distributed``: losses and the
+    ``hf_export`` tensors bitwise equal, ``metrics.jsonl`` holding
+    ``eval/gen_mer`` and both prediction tables, both step rates logged."""
+    from taiwan_whisper_tpu_torch import cli, get_config
+    from taiwan_whisper_tpu_torch.audio.manifest import Manifest, read_manifest, write_manifest
+    from taiwan_whisper_tpu_torch.models.io import read_safetensors
+    from taiwan_whisper_tpu_torch.tools.synth_audio import write_lecture_flacs
+
+    t_phase = time.perf_counter()
+    cfg, base = get_config("large-v2"), get_config("base")
+    configs = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs")
+    out: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) label, 2 ranks sharing the card, against one process
+        audio_dir = os.path.join(tmp, "audio")
+        os.makedirs(audio_dir)
+        names = write_lecture_flacs(audio_dir, DIST_FILES, DIST_SECONDS, seed=2)
+        manifest = os.path.join(tmp, "lectures.tsv")
+        write_manifest(manifest, Manifest(root=audio_dir, paths=names))
+        label = ["label", f"@{os.path.join(configs, 'label_large_v2.args')}", "--manifest",
+                 manifest, "--model", model_dir, "--max_decode_tokens", str(DIST_TOKENS)]
+        # the one-process run beside the ranks, on the same card
+        t0 = time.perf_counter()
+        procs = start_ranks(label + ["--output_dir", os.path.join(tmp, "label_dp"),
+                                     "--distributed"], DIST_RANKS)
+        try:
+            zero_counters()
+            stats = cli.main(label + ["--output_dir", os.path.join(tmp, "label_sp")])
+            torch.cuda.synchronize()
+            one = read_counters()
+        except BaseException:
+            stop_ranks(procs)
+            raise
+        sp_wall = time.perf_counter() - t0
+        ranks = finish_ranks(procs, "distributed_label")
+        dp_wall = time.perf_counter() - t0
+        for r, (launches, st) in enumerate(ranks):
+            want = label_launches(cfg, st["batches"], DIST_TOKENS)
+            log(f"[distributed] label rank {r}: {st['files']} files, {st['chunks']} chunks, "
+                f"{st['batches']} batches, {st['audio_seconds'] / st['wall_seconds']:.2f} "
+                f"audio-s/s; launches {json.dumps(launches)}")
+            if st["files"] != DIST_FILES // DIST_RANKS or launches != want:
+                raise AssertionError(f"label rank {r}: {st}, launches {launches} != {want}")
+            add_launches(entries, results, f"distributed_label_rank{r}", launches)
+        if one != label_launches(cfg, stats["batches"], DIST_TOKENS) or stats["files"] != DIST_FILES:
+            raise AssertionError(f"one-process label: {stats}, launches {one}")
+        csv_dp, csv_sp = _read_csvs(os.path.join(tmp, "label_dp")), \
+            _read_csvs(os.path.join(tmp, "label_sp"))
+        log(f"[distributed] label, sharing the card: {DIST_RANKS} ranks {dp_wall:.1f} s of "
+            f"command (start-up and checkpoint load included), one process {sp_wall:.1f} s "
+            f"({stats['audio_seconds'] / stats['wall_seconds']:.2f} audio-s/s); {len(csv_dp)} "
+            f"CSVs, byte-equal to one process: {csv_dp == csv_sp}")
+        if len(csv_sp) != DIST_FILES or csv_dp != csv_sp:
+            raise AssertionError("distributed label CSVs differ from the one-process run's")
+        out["label"] = dict(ranks_wall_s=dp_wall, one_process_wall_s=sp_wall,
+                            rank_stats=[st for _, st in ranks], csvs=len(csv_dp))
+
+        # (b) prefilter, 2 ranks sharing the card, against one process
+        dirs = {k: os.path.join(tmp, k) for k in ("pf_audio", "trans", "segments", "tok")}
+        for k in ("pf_audio", "trans", "tok"):
+            os.makedirs(dirs[k])
+        base_dir = write_base(tmp, torch)
+        _byte_vocab(dirs["tok"])
+        lectures = write_lecture_flacs(dirs["pf_audio"], DIST_LECTURES, PREFILTER_SECONDS,
+                                       seed=3)
+        _pseudo_label_csvs(dirs["trans"], lectures, PREFILTER_SECONDS)
+        cli.main(["segment", "--trans_dir", dirs["trans"], "--audio_dir", dirs["pf_audio"],
+                  "--output_dir", dirs["segments"]])
+        segs = os.path.join(dirs["segments"], "train.tsv")
+        n_segs = len(read_manifest(segs))
+        prefilter = ["prefilter", f"@{os.path.join(configs, 'prefilter_base_0.4.args')}",
+                     "--manifest", segs, "--validator", base_dir, "--tokenizer_dir", dirs["tok"]]
+        pf_dp, pf_sp = os.path.join(tmp, "pf_dp"), os.path.join(tmp, "pf_sp")
+        t0 = time.perf_counter()
+        procs = start_ranks(prefilter + ["--output_dir", pf_dp, "--distributed"], DIST_RANKS)
+        try:
+            zero_counters()
+            stats = cli.main(prefilter + ["--output_dir", pf_sp])
+            torch.cuda.synchronize()
+            one = read_counters()
+        except BaseException:
+            stop_ranks(procs)
+            raise
+        ranks = finish_ranks(procs, "distributed_prefilter")
+        dp_wall = time.perf_counter() - t0
+        steps = PREFILTER_BUDGET - 3
+        shards = []
+        for r, (launches, st) in enumerate(ranks):
+            with open(os.path.join(pf_dp, f"idx_hyp.{r}.txt"), encoding="utf-8") as f:
+                shards.append({int(x.split("\t")[0]) for x in f if "\t" in x})
+            log(f"[distributed] prefilter rank {r}: {st['segments']} segments, "
+                f"{st['batches']} batches, decode {st['decode_s']:.2f} s; launches "
+                f"{json.dumps(launches)}")
+            if launches != label_launches(base, st["batches"], steps):
+                raise AssertionError(f"prefilter rank {r}: launches {launches}")
+            add_launches(entries, results, f"distributed_prefilter_rank{r}", launches)
+        if one != label_launches(base, stats["batches"], steps):
+            raise AssertionError(f"one-process prefilter launches {one}")
+        same = {n: _read(os.path.join(pf_dp, n)) == _read(os.path.join(pf_sp, n))
+                for n in ("hallucination_result.csv",
+                          "train_non-hallucinated-threshold0.4.tsv")}
+        log(f"[distributed] prefilter: {n_segs} segments, shards of {[len(x) for x in shards]}, "
+            f"{DIST_RANKS} ranks {dp_wall:.1f} s of command beside one process; rank 0's merged "
+            f"files byte-equal "
+            f"to one process: {same}")
+        if not all(shards) or shards[0] & shards[1] or \
+                shards[0] | shards[1] != set(range(n_segs)):
+            raise AssertionError(f"prefilter shards not disjoint or incomplete: {shards}")
+        if not all(same.values()):
+            raise AssertionError(f"distributed prefilter files differ: {same}")
+        out["prefilter"] = dict(segments=n_segs, shards=[len(x) for x in shards],
+                                ranks_wall_s=dp_wall)
+
+        # (c) distill at world size 1 through NCCL, against the plain run
+        corpus = os.path.join(tmp, "corpus")
+        os.makedirs(corpus)
+        train, tok_dir = _segment_corpus(corpus, 4 * DIST_BATCH)
+        evals = os.path.join(corpus, "eval.tsv")
+        write_manifest(evals, Manifest(root=os.path.join(corpus, "segments"),
+                                       paths=["seg.wav"] * DIST_BATCH))
+        student, student_layers = os.path.join(tmp, "student-32-2"), 2
+        cli.main(["init-student", "--teacher", model_dir, "--out", student,
+                  "--decoder_layers", str(student_layers)])
+        distill = ["distill", "--manifest", train, "--teacher", model_dir, "--student",
+                   student, "--warmup_steps", "1", "--language", "zh", "--tokenizer_dir",
+                   tok_dir, "--max_steps", str(DIST_STEPS), "--batch_size", str(DIST_BATCH),
+                   "--logging_steps", "1", "--eval_steps", str(DIST_STEPS),
+                   "--eval_manifest", evals, "--gen_eval_batches", "1"]
+        runs = {}
+        for run, extra in (("plain", []), ("distributed", ["--distributed"])):
+            run_dir = os.path.join(tmp, f"distill_{run}")
+            saved = {k: os.environ.get(k) for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK",
+                                                     "MASTER_ADDR", "MASTER_PORT")}
+            if extra:
+                os.environ.update(rank_env(0, 1, _free_port()))
+            zero_counters()
+            t0 = time.perf_counter()
+            try:
+                cli.main(distill + ["--output_dir", run_dir] + extra)
+                torch.cuda.synchronize()
+            finally:
+                for k, v in saved.items():
+                    if v is None:
+                        os.environ.pop(k, None)
+                    else:
+                        os.environ[k] = v
+            wall = time.perf_counter() - t0
+            launches = read_counters()
+            with open(os.path.join(run_dir, "metrics.jsonl"), encoding="utf-8") as f:
+                records = [json.loads(line) for line in f]
+            train_recs = [r for r in records if "train/loss" in r]
+            times = [r["time"] for r in train_recs]
+            runs[run] = dict(
+                losses=[r["train/loss"] for r in train_recs],
+                steps_per_s=(len(times) - 1) / (times[-1] - times[0]), cli_wall_s=wall,
+                gen_mer=[r["eval/gen_mer"] for r in records if "eval/gen_mer" in r],
+                tables=[r["table"] for r in records if "table" in r], launches=launches,
+                export=read_safetensors(os.path.join(run_dir, "hf_export",
+                                                     "model.safetensors")))
+            shutil.rmtree(run_dir)
+            log(f"[distributed] distill {run}: losses {runs[run]['losses']}, "
+                f"{runs[run]['steps_per_s']:.3f} steps/s (steps 2-{DIST_STEPS}), gen_mer "
+                f"{runs[run]['gen_mer']}, tables {runs[run]['tables']}, cli wall {wall:.1f} s; "
+                f"launches {json.dumps(launches)}")
+            # mel and encoder: each train step, the eval batch and the
+            # generation eval's batch; the decoder's cross and self kernels
+            # in the generation eval (prefill: cross only; a trained
+            # student may stop early, at a multiple of 8 steps)
+            n = DIST_STEPS + 2
+            if (launches["mel"] != n or launches["encoder_attention"] != n * cfg.encoder_layers
+                    or launches["self_decode_attention"] <= 0
+                    or launches["cross_decode_attention"]
+                    != launches["self_decode_attention"] + student_layers):
+                raise AssertionError(f"distill {run}: launch counts {launches}")
+            if len(runs[run]["losses"]) != DIST_STEPS or len(runs[run]["gen_mer"]) != 1 or \
+                    runs[run]["tables"] != ["eval/predictions", "eval/incorrect_predictions"]:
+                raise AssertionError(f"distill {run}: metrics.jsonl incomplete")
+            add_launches(entries, results, f"distributed_distill_{run}", launches)
+        a, b = runs["plain"], runs["distributed"]
+        differ = sorted(k for k in a["export"] if not torch.equal(a["export"][k],
+                                                                  b["export"][k]))
+        log(f"[distributed] distill --distributed (world 1, NCCL) against plain: losses "
+            f"bitwise equal {a['losses'] == b['losses']}, gen_mer equal "
+            f"{a['gen_mer'] == b['gen_mer']}, hf_export tensors differing {len(differ)} of "
+            f"{len(a['export'])}; steps/s {b['steps_per_s']:.3f} against "
+            f"{a['steps_per_s']:.3f}")
+        if a["losses"] != b["losses"] or differ or a["launches"] != b["launches"]:
+            raise AssertionError(f"distill --distributed differs from the plain run: losses "
+                                 f"{a['losses']} vs {b['losses']}, tensors {differ[:5]}")
+        out["distill"] = {k: {kk: v for kk, v in r.items() if kk != "export"}
+                          for k, r in runs.items()}
+    phase_s = time.perf_counter() - t_phase
+    log(f"[distributed] phase wall {phase_s:.1f} s")
+    results["distributed"] = dict(out, phase_seconds=phase_s)
 
 
 def phase_train_agree(torch, results: dict):
@@ -2446,9 +2766,11 @@ def main(argv) -> int:
     except ImportError as e:
         print(f"chip_smoke: run from the repository root ({e})", file=sys.stderr)
         return 2
+    if argv[:1] == ["_rank"]:
+        return rank_main(argv[1:])
     t_start = time.perf_counter()
     phases = argv or ["kernels", "label", "label_vad", "label_beam", "longform", "speculative",
-                      "prefilter", "train", "train_agree", "agree"]
+                      "prefilter", "train", "distributed", "train_agree", "agree"]
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -2465,7 +2787,7 @@ def main(argv) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         model_dir = (write_large_v2(tmp, torch)
                      if {"label", "label_vad", "label_beam", "longform", "speculative",
-                         "train"} & set(phases)
+                         "train", "distributed"} & set(phases)
                      else None)
         if "label" in phases:
             phase_label(torch, entries, results, model_dir)
@@ -2481,6 +2803,8 @@ def main(argv) -> int:
             phase_prefilter(torch, entries, results)
         if "train" in phases:
             phase_train(torch, entries, results, model_dir)
+        if "distributed" in phases:
+            phase_distributed(torch, entries, results, model_dir)
     if "train_agree" in phases:
         phase_train_agree(torch, results)
     if "agree" in phases:

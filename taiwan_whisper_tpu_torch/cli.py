@@ -25,8 +25,20 @@ Each subcommand takes the JAX CLI's flags and defaults
 ``--device``, and ``distill`` and ``finetune`` ``--compute_dtype`` (bf16,
 the JAX CLI's policy, or fp32) and ``--logging_steps``. label's and
 evaluate's ``--assistant`` load the draft model on the same device.
-``--distributed`` raises NotImplementedError naming its ROADMAP item
-(Queue A 6); ``sweep`` waits for a later slice (Queue A 6).
+
+Multi-process runs: launch the same command once per process with
+``--distributed``, e.g.
+
+    torchrun --nproc_per_node N -m taiwan_whisper_tpu_torch.cli label ... --distributed
+
+Each process joins the run from the launcher's environment
+(``parallel.init_distributed``; raises when a variable is missing) and runs
+on ``cuda:<LOCAL_RANK>`` unless ``--device`` names another. label and
+prefilter shard the manifest by rank, distill and finetune train data
+parallel over the ranks (``--batch_size`` is the global batch), evaluate
+and transcribe shard nothing. ``--model_parallel > 1`` (tensor parallel)
+raises NotImplementedError naming its ROADMAP item (Queue A 6); ``sweep``
+waits for a later slice (Queue A 7).
 """
 
 from __future__ import annotations
@@ -35,9 +47,6 @@ import argparse
 import glob
 import json
 import os
-
-_UNPORTED = "wait(s) for a later slice of the port (ROADMAP Queue A 6)"
-
 
 def _quant_arg(v: str):
     """--quantize_kv value: off/0/false | 8/int8/true | 4/int4 | fp8."""
@@ -56,8 +65,6 @@ def _quant_arg(v: str):
 def cmd_label(args):
     from .pipeline.label import LabelConfig, run_labelling
 
-    if args.distributed:
-        raise NotImplementedError(f"--distributed {_UNPORTED}")
     stats = run_labelling(
         args.manifest, args.model, args.output_dir,
         LabelConfig(
@@ -126,8 +133,6 @@ def cmd_prefilter(args):
     """Returns the run's counts and times (``run_prefilter``'s stats)."""
     from .pipeline.prefilter import PrefilterConfig, run_prefilter
 
-    if args.distributed:
-        raise NotImplementedError(f"--distributed {_UNPORTED}")
     stats: dict = {}
     run_prefilter(args.manifest, args.validator, args.output_dir,
                   PrefilterConfig(language=args.language, batch_size=args.batch_size,
@@ -150,18 +155,12 @@ def _policy(name: str):
     return DtypePolicy.fp32() if name == "fp32" else DtypePolicy.bf16()
 
 
-def _check_train_args(args):
-    if args.distributed:
-        raise NotImplementedError(f"--distributed {_UNPORTED}")
-
-
 def cmd_distill(args):
     from .pipeline.dataset import TrainPrepConfig
     from .pipeline.distill_driver import DistillRunConfig, run_distillation
     from .train.distill import DistillConfig
     from .train.state import OptimConfig
 
-    _check_train_args(args)
     metrics = run_distillation(
         args.manifest, args.teacher, args.output_dir,
         student_dir=args.student,
@@ -200,7 +199,6 @@ def cmd_finetune(args):
     from .pipeline.distill_driver import DistillRunConfig, run_finetuning
     from .train.state import OptimConfig
 
-    _check_train_args(args)
     metrics = run_finetuning(
         args.manifest, args.model, args.output_dir,
         freeze_encoder=args.freeze_encoder,
@@ -261,8 +259,6 @@ def _load_for(args):
     from .models.params import map_params
     from .text.tokenizer import WhisperTokenizer, special_for_vocab
 
-    if args.distributed:
-        raise NotImplementedError(f"--distributed {_UNPORTED}")
     dev = resolve_device(args.device)
     params, config = load_model(args.model)
     params = map_params(lambda _, t: t.to(dev), params)
@@ -343,7 +339,9 @@ def cmd_transcribe(args):
 def _add_model_common(p: argparse.ArgumentParser):
     p.add_argument("--tokenizer_dir", default=None,
                    help="dir with vocab.json/merges.txt (optional)")
-    p.add_argument("--distributed", action="store_true")
+    p.add_argument("--distributed", action="store_true",
+                   help="join a multi-process run from the launcher's environment "
+                        "(torchrun) first")
     p.add_argument("--device", default=None,
                    help="torch device to run on (default cuda; 'cpu' runs the "
                         "plain PyTorch path)")
@@ -539,7 +537,15 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    return args.fn(args)
+    if not getattr(args, "distributed", False):
+        return args.fn(args)
+    from .parallel import init_distributed, shutdown
+
+    init_distributed(args.device)
+    try:
+        return args.fn(args)
+    finally:
+        shutdown()
 
 
 if __name__ == "__main__":

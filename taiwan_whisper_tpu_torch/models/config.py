@@ -101,9 +101,14 @@ class DtypePolicy:
 
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: ``cuda`` unless the caller names
-    another. Raises when CUDA is asked for (or defaulted to) but absent —
-    entry points never fall back to the CPU on their own."""
-    dev = torch.device("cuda" if device is None else device)
+    another (``cuda:<LOCAL_RANK>`` in a multi-process run). Raises when CUDA
+    is asked for (or defaulted to) but absent — entry points never fall
+    back to the CPU on their own."""
+    from ..parallel import mesh
+
+    if device is None:
+        device = f"cuda:{mesh.launch_env()['LOCAL_RANK']}" if mesh.initialized() else "cuda"
+    dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(

@@ -28,9 +28,7 @@ Differences from the JAX package, by design:
 * int4 cross K/V is stored packed two positions a byte (uint8; PyTorch has
   no int4 dtype), and ``QuantCrossKV.length`` carries the logical length;
 * ``extend`` writes its P tokens' K/V into the cache in place, as the
-  other decoder entry points do, and takes neither ``beams`` nor
-  ``int8_dots``: speculative decoding, its one caller, runs batch 1 over
-  unquantized cross K/V.
+  other decoder entry points do.
 """
 
 from __future__ import annotations
@@ -442,15 +440,16 @@ def prefill(params: Params, cross_kv: CrossKV, cache: KVCache, tokens: torch.Ten
 
 
 def extend(params: Params, cross_kv: CrossKV, cache: KVCache, tokens: torch.Tensor,
-           offset: int, config: WhisperConfig, policy: DtypePolicy = DtypePolicy()
-           ) -> torch.Tensor:
+           offset: int, config: WhisperConfig, policy: DtypePolicy = DtypePolicy(), *,
+           beams: int = 1, int8_dots: bool = False) -> torch.Tensor:
     """Multi-token decode: P ``tokens`` [B, P] at positions offset ..
     offset + P - 1 against a cache valid below ``offset``, in one pass; the
     verification step of speculative decoding. Their K/V go into
     cache[..., offset:offset + P] in place; query i sees the cache keys at
     positions <= offset + i (plain ``torch`` attention over the whole cache,
     masked, as the JAX model's einsums do); the cross kernel takes the P
-    rows. Returns fp32 logits [B, P, vocab]."""
+    rows. ``beams`` and ``int8_dots`` as in ``decode_step``. Returns fp32
+    logits [B, P, vocab]."""
     p = params["decoder"]
     dtype = policy.compute_dtype
     n_heads = config.decoder_attention_heads
@@ -476,7 +475,7 @@ def extend(params: Params, cross_kv: CrossKV, cache: KVCache, tokens: torch.Tens
         x = x + _dense(a["out"], _merge_heads(att))
         h = _layer_norm(lp["cross_attn_ln"], x)
         q = _split_heads(_dense(lp["cross_attn"]["q"], h), n_heads)
-        att = _cross_attention(q, _cross_layer(cross_kv, i), dtype)
+        att = _cross_attention(q, _cross_layer(cross_kv, i), dtype, beams, int8_dots)
         x = x + _dense(lp["cross_attn"]["out"], _merge_heads(att))
         h = _layer_norm(lp["final_ln"], x)
         x = x + _dense(lp["fc2"], _gelu(_dense(lp["fc1"], h)))

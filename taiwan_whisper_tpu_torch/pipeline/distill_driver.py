@@ -1,18 +1,29 @@
 """Stage 3 driver: the knowledge-distillation and fine-tuning loop (port of
-taiwan_whisper_tpu/pipeline/distill_driver.py) on one device.
+taiwan_whisper_tpu/pipeline/distill_driver.py).
 
 Teacher and student setup (language-embedding mix, maximally-spaced
 student init, frozen or trainable encoder), streaming manifest batches on a
 prefetch thread, the log-mel on the device through the mel kernel, the
-train step, loss-only eval with best-checkpoint tracking, checkpoint
-save/rotate/resume (skipping consumed batches), SIGTERM/SIGINT
-checkpointing, and the HF export of the student at every save.
+train step, loss-only eval with best-checkpoint tracking, the generation
+eval (``gen_eval_batches``: greedy decoding of eval batches, MER against
+their labels, prediction tables), checkpoint save/rotate/resume (skipping
+consumed batches), SIGTERM/SIGINT checkpointing, and the HF export of the
+student at every save; metrics to ``metrics.jsonl`` and, with
+``use_wandb``, wandb.
 
 Weights are fp32 masters on the device whatever the checkpoint stores;
 compute runs in the policy's dtype. Only the teacher's decoder goes to the
 device (the student's encoder serves both), and a CE-only run loads no
-teacher. Not ported yet (raise NotImplementedError, ROADMAP Queue A 6):
-``model_parallel > 1``, wandb, generation eval.
+teacher.
+
+In a multi-process run (``parallel.init_distributed``) the training is data
+parallel over the ranks: ``batch_size`` is the global batch, every rank
+builds the same batch stream and trains on its contiguous slice of rows,
+and the step reduces the token count, gradients and metrics
+(``train/distill.py``). Rank 0 writes checkpoints, the HF export and the
+metrics, and runs the generation eval; a signal on any rank stops every
+rank at the same step. ``model_parallel > 1`` (tensor parallel) raises
+NotImplementedError (ROADMAP Queue A 6).
 """
 
 from __future__ import annotations
@@ -27,10 +38,17 @@ import numpy as np
 import torch
 
 from ..audio.manifest import read_manifest
+from ..decode.greedy import greedy_decode
+from ..decode.rules import DecodeRules
+from ..models import whisper as M
 from ..models.config import DtypePolicy, resolve_device
 from ..models.io import load_model, save_hf_checkpoint
-from ..models.params import init_student_from_teacher, map_params, mix_language_embeddings
+from ..models.params import (init_student_from_teacher, map_params, mix_language_embeddings,
+                              prepare_params)
 from ..ops import mel_kernel
+from ..parallel import mesh
+from ..text.metrics import MixErrorRate
+from ..text.normalizer import BasicTextNormalizer
 from ..text.tokenizer import WhisperTokenizer
 from ..train.distill import DistillConfig, make_eval_step, make_train_step
 from ..train.state import CheckpointManager, OptimConfig, make_optimizer, trainable_mask
@@ -42,7 +60,7 @@ from .dataset import TrainPrepConfig, train_batches
 @dataclasses.dataclass
 class DistillRunConfig:
     max_steps: int = 120_000
-    batch_size: int = 32
+    batch_size: int = 32  # the global batch: each process of a run trains on its slice
     model_parallel: int = 1
     save_steps: int = 1000
     eval_steps: int = 1000
@@ -59,14 +77,13 @@ class DistillRunConfig:
 
 
 def _check_supported(run_cfg: DistillRunConfig):
-    unported = [name for name, on in (
-        ("--model_parallel > 1", run_cfg.model_parallel > 1),
-        ("--wandb", run_cfg.use_wandb),
-        ("--gen_eval_batches > 0", run_cfg.gen_eval_batches > 0),
-    ) if on]
-    if unported:
+    if run_cfg.model_parallel > 1:
         raise NotImplementedError(
-            f"{', '.join(unported)} wait(s) for a later slice of the port (ROADMAP Queue A 6)")
+            "--model_parallel > 1 (tensor parallel) waits for a later slice of the port "
+            "(ROADMAP Queue A 6)")
+    if run_cfg.batch_size % mesh.world_size():
+        raise ValueError(f"--batch_size {run_cfg.batch_size} (the global batch) does not "
+                         f"divide over {mesh.world_size()} processes")
 
 
 def _masters(params, device):
@@ -123,6 +140,8 @@ def run_distillation(train_manifest_path: str, teacher_dir: str, output_dir: str
         max_label_length=min(prep_cfg.max_label_length, student_cfg.max_target_positions))
     train_step = make_train_step(student_cfg, teacher_cfg, dcfg, optimizer, policy)
     eval_step = make_eval_step(student_cfg, teacher_cfg, dcfg, policy)
+    per_rank = run_cfg.batch_size // mesh.world_size()
+    rows = slice(mesh.rank() * per_rank, (mesh.rank() + 1) * per_rank)
 
     manifest = read_manifest(train_manifest_path)
     if not manifest.paths:
@@ -140,10 +159,13 @@ def run_distillation(train_manifest_path: str, teacher_dir: str, output_dir: str
             print(f"[distill] resumed from step {start_step}", flush=True)
 
     def to_device(batch) -> Dict[str, torch.Tensor]:
-        audio = torch.from_numpy(batch["audio"]).to(dev)
+        """This rank's rows of a global batch on the device, with their
+        log-mel."""
+        audio = torch.from_numpy(batch["audio"][rows]).to(dev)
         return {"mel": mel_kernel.log_mel(audio, student_cfg.num_mel_bins),
-                "decoder_input_ids": torch.from_numpy(batch["decoder_input_ids"]).to(dev),
-                "labels": torch.from_numpy(batch["labels"]).to(dev)}
+                "decoder_input_ids":
+                    torch.from_numpy(batch["decoder_input_ids"][rows]).to(dev),
+                "labels": torch.from_numpy(batch["labels"][rows]).to(dev)}
 
     # held-out eval: loss-only over a fixed batch set, tracking the best
     # checkpoint
@@ -168,6 +190,15 @@ def run_distillation(train_manifest_path: str, teacher_dir: str, output_dir: str
                 totals[k] = totals.get(k, 0.0) + float(v)
         avg = {k: v / len(eval_batches) for k, v in totals.items()}
         logger.log(avg, step, prefix="eval")
+        if run_cfg.gen_eval_batches > 0 and mesh.is_main():
+            mer, table = generation_eval(
+                student, student_cfg, tok, eval_batches[:run_cfg.gen_eval_batches],
+                prep_cfg.language, prep_cfg.task, run_cfg.gen_eval_max_tokens, policy, dev)
+            logger.log({"gen_mer": mer}, step, prefix="eval")
+            cols, cap = ("pred", "label", "norm_pred", "norm_label"), run_cfg.gen_eval_table_rows
+            logger.log_table("predictions", cols, table[:cap], step)
+            wrong = [r for r in table if r[2] != r[3]]
+            logger.log_table("incorrect_predictions", cols, wrong[:cap], step)
         if avg["loss"] < best_eval_loss:
             best_eval_loss = avg["loss"]
             ckpt.save(step, {"params": student, "opt_state": opt_state}, keep=True)
@@ -183,7 +214,8 @@ def run_distillation(train_manifest_path: str, teacher_dir: str, output_dir: str
             epoch += 1
 
     # SIGTERM/SIGINT set a flag; the loop checkpoints and stops at the next
-    # step boundary
+    # step boundary, every rank at the same one (a rank that left alone
+    # would leave the others waiting in the step's all-reduce)
     preempted = {"flag": False}
 
     def _on_signal(signum, frame):
@@ -200,7 +232,7 @@ def run_distillation(train_manifest_path: str, teacher_dir: str, output_dir: str
         for batch in prefetch(stream, buffer_size=2):
             if step >= run_cfg.max_steps:
                 break
-            if preempted["flag"]:
+            if mesh.any_rank(preempted["flag"]):
                 ckpt.save(step, {"params": student, "opt_state": opt_state})
                 print(f"[distill] preempted; saved checkpoint-{step}", flush=True)
                 break
@@ -218,12 +250,45 @@ def run_distillation(train_manifest_path: str, teacher_dir: str, output_dir: str
                 run_eval(step)
             if step % run_cfg.save_steps == 0 or step == run_cfg.max_steps:
                 ckpt.save(step, {"params": student, "opt_state": opt_state})
-                save_hf_checkpoint(os.path.join(output_dir, "hf_export"), student, student_cfg)
+                if mesh.is_main():
+                    save_hf_checkpoint(os.path.join(output_dir, "hf_export"), student,
+                                       student_cfg)
     finally:
         for s, h in old_handlers.items():
             signal.signal(s, h)
         logger.close()
     return final_metrics
+
+
+def generation_eval(params, config, tok: WhisperTokenizer, batches, language: str, task: str,
+                    max_tokens: int, policy: DtypePolicy, device):
+    """Greedy-decode the audio of ``batches`` (timestamps on, at most
+    ``max_tokens`` after the sot sequence) and score the normalized texts
+    against the batches' label texts: returns (MER, a row (pred, label,
+    norm_pred, norm_label) per sample)."""
+    rules = DecodeRules.from_special(tok.special, timestamps=True)
+    sot = tok.sot_sequence(language, task)
+    max_len = min(len(sot) + max_tokens, config.max_target_positions)
+    params = prepare_params(params, policy, device)
+    norm = BasicTextNormalizer()
+    table = []
+    for eb in batches:
+        audio = torch.from_numpy(eb["audio"]).to(device)
+        with torch.inference_mode():
+            enc = M.encode(params, mel_kernel.log_mel(audio, config.num_mel_bins), config,
+                           policy)
+        prefix = torch.tensor([sot] * audio.shape[0], dtype=torch.int32, device=device)
+        res = greedy_decode(params, enc, prefix, config, rules, policy, max_len=max_len,
+                            device=device)
+        tokens, lengths = res.tokens.cpu().numpy(), res.lengths.cpu().numpy()
+        for j in range(tokens.shape[0]):
+            pred = tok.decode(tokens[j][len(sot):len(sot) + int(lengths[j])].tolist(),
+                              skip_special_tokens=True)
+            label = tok.decode([int(t) for t in eb["labels"][j] if 0 <= t < tok.special.eot],
+                               skip_special_tokens=True)
+            table.append((pred, label, norm(pred), norm(label)))
+    mer = MixErrorRate().compute([r[2] for r in table], [r[3] for r in table])
+    return float(mer), table
 
 
 def run_finetuning(train_manifest_path: str, model_dir: str, output_dir: str, *,

@@ -25,9 +25,10 @@ With an assistant (a draft model: ``run_labelling(assistant_dir=)``,
 drafting and the teacher verifying (decode/speculative.py), the encoder
 shared when the two models' encoders have the same width and depth.
 
-``run_labelling`` also labels a ground-truth split when given one and
-scores the pseudo-labels against it (``validate_labels``: MER, EN-WER,
-ZH-CER).
+``run_labelling`` labels this process's contiguous shard of the manifest
+(``parallel.host_local_slice``: all of it outside a multi-process run),
+and also labels a ground-truth split when given one and scores the
+pseudo-labels against it (``validate_labels``: MER, EN-WER, ZH-CER).
 """
 
 from __future__ import annotations
@@ -55,6 +56,7 @@ from ..models import whisper as M
 from ..models.config import DtypePolicy, WhisperConfig, resolve_device
 from ..models.params import prepare_params
 from ..ops.mel_kernel import log_mel
+from ..parallel.mesh import host_local_slice
 from ..text.tokenizer import WhisperTokenizer
 from .vad import (_VAD_CALL_SEGS, _VAD_SEG_SAMPLES, detect_speech_regions,
                   resolve_vad_mode, spectral_regions_device_batch)
@@ -531,7 +533,8 @@ def run_labelling(manifest_path: str, model_dir: str, output_dir: str,
                   assistant_dir: Optional[str] = None,
                   validation_manifest: Optional[str] = None, *,
                   policy: DtypePolicy = DtypePolicy(), device=None) -> dict:
-    """CLI entry: load the model and label every file of the manifest.
+    """CLI entry: load the model and label this process's shard of the
+    manifest's files.
     ``assistant_dir`` loads a draft model on the same device and switches
     on speculative decoding. With
     ``validation_manifest`` (a labelled split: audio with transcript txts
@@ -550,6 +553,7 @@ def run_labelling(manifest_path: str, model_dir: str, output_dir: str,
         a_params, a_config = load_model(assistant_dir)
         assistant = (prepare_params(a_params, policy, dev), a_config)
     paths = read_manifest(manifest_path).absolute_paths()
+    paths = paths[host_local_slice(len(paths))]
     stats = label_files(params, config, tok, paths, output_dir, cfg, policy, device=dev,
                         assistant=assistant)
     if validation_manifest:

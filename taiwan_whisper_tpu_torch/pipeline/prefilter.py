@@ -2,15 +2,16 @@
 the cross-model MER filter drops the segments whose teacher transcript it
 contradicts (port of taiwan_whisper_tpu/pipeline/prefilter.py).
 
-``validator_transcribe`` greedy-decodes the segments in batches of
-``batch_size`` on the device: log-mel (the CUDA kernel on the card), encode,
-and the greedy loop with an unquantized cross K/V and a budget of
-``max_decode_len`` tokens, prefix included. The last batch is padded with
-zero audio to the full batch, as the JAX package pads it. The run is
-single-host: it writes the rank-0 shard ``idx_hyp.0.txt`` and merges every
-``idx_hyp.*.txt`` of the output directory, as the JAX package's rank 0
-does. ``filter_manifest`` (host only) writes ``hallucination_result.csv``
-and the cleaned manifest.
+``validator_transcribe`` greedy-decodes this process's contiguous shard of
+the segments (``parallel.host_local_slice``: all of them outside a
+multi-process run) in batches of ``batch_size`` on the device: log-mel (the
+CUDA kernel on the card), encode, and the greedy loop with an unquantized
+cross K/V and a budget of ``max_decode_len`` tokens, prefix included. The
+last batch is padded with zero audio to the full batch, as the JAX package
+pads it. ``run_prefilter`` writes each rank's ``idx_hyp.<rank>.txt``,
+waits for every rank at a barrier, and rank 0 merges every
+``idx_hyp.*.txt`` of the output directory; ``filter_manifest`` (host only)
+then writes ``hallucination_result.csv`` and the cleaned manifest.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from ..audio.mel import pad_or_trim
 from ..decode.rules import DecodeRules
 from ..models.config import DtypePolicy, WhisperConfig, resolve_device
 from ..models.params import prepare_params
+from ..parallel import mesh
 from ..text.hallucination import CrossModelFilter, FilterDecision
 from ..text.tokenizer import WhisperTokenizer
 from .label import decode_audio
@@ -51,11 +53,12 @@ def validator_decode(params, config: WhisperConfig, tok: WhisperTokenizer,
                      audio_paths: Sequence[str], cfg: PrefilterConfig = PrefilterConfig(),
                      policy: DtypePolicy = DtypePolicy(), *, device=None,
                      stats: Optional[dict] = None) -> List[Tuple[int, np.ndarray, int]]:
-    """Greedy-decode every segment (padded or trimmed to the model's 30 s
-    window) on ``device`` (cuda unless given). Returns, per segment, (its
-    index, the token row after the sot prefix, the count of sampled tokens
-    before eot). Each batch's files load on 4 threads. ``stats``, when
-    given, receives the run's counts and times."""
+    """Greedy-decode this process's shard of the segments (each padded or
+    trimmed to the model's 30 s window) on ``device`` (cuda unless given).
+    Returns, per segment, (its index in ``audio_paths``, the token row after
+    the sot prefix, the count of sampled tokens before eot). Each batch's
+    files load on 4 threads. ``stats``, when given, receives the run's
+    counts and times."""
     dev = resolve_device(device)
     params = prepare_params(params, policy, dev)
     rules = DecodeRules.from_special(tok.special, timestamps=True)
@@ -63,7 +66,8 @@ def validator_decode(params, config: WhisperConfig, tok: WhisperTokenizer,
     n_window = config.max_source_positions * 2 * 160
     bs = cfg.batch_size
     prefix = torch.tensor([sot_seq] * bs, dtype=torch.int32, device=dev)
-    counts = dict(segments=len(audio_paths), batches=0, pad_rows=0,
+    shard = range(len(audio_paths))[mesh.host_local_slice(len(audio_paths))]
+    counts = dict(segments=len(shard), batches=0, pad_rows=0,
                   steps=cfg.max_decode_len - len(sot_seq), load_wait_s=0.0, decode_s=0.0,
                   batch_decode_s=[])
     t0 = time.perf_counter()
@@ -73,8 +77,8 @@ def validator_decode(params, config: WhisperConfig, tok: WhisperTokenizer,
 
     out: List[Tuple[int, np.ndarray, int]] = []
     with ThreadPoolExecutor(max_workers=4) as pool:
-        for start in range(0, len(audio_paths), bs):
-            ids = range(start, min(start + bs, len(audio_paths)))
+        for start in range(0, len(shard), bs):
+            ids = shard[start:start + bs]
             tl = time.perf_counter()
             arrs = list(pool.map(load, ids))
             counts["load_wait_s"] += time.perf_counter() - tl
@@ -178,9 +182,11 @@ def run_prefilter(manifest_path: str, validator_model_dir: str, output_dir: str,
                   cfg: PrefilterConfig = PrefilterConfig(), tokenizer_dir: Optional[str] = None,
                   *, policy: DtypePolicy = DtypePolicy(), device=None,
                   stats: Optional[dict] = None) -> Manifest:
-    """CLI entry: the validator over every segment of the manifest, its
-    rank-0 shard written, every shard merged, the filter applied; returns
-    the cleaned manifest. ``stats`` as in ``validator_decode``, plus the
+    """CLI entry: the validator over this process's shard of the
+    manifest's segments, its ``idx_hyp.<rank>.txt`` written; after every
+    rank has written, rank 0 merges every shard and applies the filter.
+    Returns the cleaned manifest on rank 0 and the manifest read on the
+    others. ``stats`` as in ``validator_decode``, plus, on rank 0, the
     filter's seconds and counts."""
     from ..models.io import load_model
 
@@ -189,16 +195,17 @@ def run_prefilter(manifest_path: str, validator_model_dir: str, output_dir: str,
     tok = (WhisperTokenizer.from_pretrained_dir(tokenizer_dir)
            if tokenizer_dir else WhisperTokenizer())
     manifest = read_manifest(manifest_path)
-    counts: dict = {}
+    stats = {} if stats is None else stats
     hyps_local = validator_transcribe(params, config, tok, manifest.absolute_paths(), cfg,
-                                      policy, device=dev, stats=counts)
-    write_hyps_tsv(os.path.join(output_dir, "idx_hyp.0.txt"), hyps_local)
+                                      policy, device=dev, stats=stats)
+    write_hyps_tsv(os.path.join(output_dir, f"idx_hyp.{mesh.rank()}.txt"), hyps_local)
+    stats["device"] = str(dev)
+    mesh.barrier("prefilter_shards_written")  # every shard is on disk
+    if not mesh.is_main():
+        return manifest
     tf = time.perf_counter()
     shards = sorted(glob.glob(os.path.join(output_dir, "idx_hyp.*.txt")))
     cleaned, decisions = filter_manifest(manifest, read_hyps_tsv(shards), cfg, output_dir)
-    counts.update(filter_s=time.perf_counter() - tf, decisions=len(decisions),
-                  hallucinated=sum(d.hallucinated for d in decisions), kept=len(cleaned),
-                  device=str(dev))
-    if stats is not None:
-        stats.update(counts)
+    stats.update(filter_s=time.perf_counter() - tf, decisions=len(decisions),
+                 hallucinated=sum(d.hallucinated for d in decisions), kept=len(cleaned))
     return cleaned

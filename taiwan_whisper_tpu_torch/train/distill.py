@@ -9,7 +9,14 @@ taiwan_whisper_tpu/train/distill.py).
   checkpointed, through the attention autograd function (forward kernel
   with LSE, backward kernel). Both decoders read the encoder output; the
   teacher runs under ``no_grad``.
-* Normalisation is by the batch's non-masked token count.
+* Normalisation is by the batch's non-masked token count. In a
+  multi-process run (``parallel.init_distributed``) the step is data
+  parallel, each process holding a slice of the global batch: it
+  all-reduces the token count before the backward and divides each rank's
+  sums by the global count, so the ranks' losses add up to the global
+  batch's and the SUM all-reduce of their gradients (one flat fp32 buffer
+  over the device group) is the single-process gradient of the global
+  batch; clipping, ``grad_norm`` and the logged metrics are global.
 * Gradients flow only to trainable leaves (the encoder when not frozen,
   the decoder except its positions table): ``requires_grad`` is set on
   exactly those, which is the JAX package's ``zero_frozen``. The global
@@ -26,6 +33,7 @@ import torch
 from ..models import whisper as M
 from ..models.config import DtypePolicy, WhisperConfig
 from ..models.params import layers_to_supervise, named_leaves
+from ..parallel import mesh
 
 LABEL_IGNORE = -100
 
@@ -70,10 +78,13 @@ def kl_divergence(teacher_logits: torch.Tensor, student_logits: torch.Tensor,
 
 def distill_loss(student_params, teacher_params, batch: Dict[str, torch.Tensor],
                  student_config: WhisperConfig, teacher_config: WhisperConfig,
-                 dcfg: DistillConfig, policy: DtypePolicy = DtypePolicy()):
+                 dcfg: DistillConfig, policy: DtypePolicy = DtypePolicy(),
+                 n_tok: Optional[torch.Tensor] = None):
     """(scalar loss, metrics dict of 0-d tensors) for one batch: ``mel``
     [B, T, n_mels], ``decoder_input_ids`` [B, U], ``labels`` [B, U]
-    (-100 on prompt and pad positions)."""
+    (-100 on prompt and pad positions). Every term is a sum over the
+    batch's label tokens divided by ``n_tok`` (the global count of a
+    data-parallel step; the batch's own count when not given)."""
     mel, dec_in, labels = batch["mel"], batch["decoder_input_ids"], batch["labels"]
     if dcfg.freeze_encoder:
         with torch.no_grad():
@@ -94,8 +105,8 @@ def distill_loss(student_params, teacher_params, batch: Dict[str, torch.Tensor],
                                    policy, output_hidden_states=need_mse, remat=False)
         t_logits, t_hidden = t_out if need_mse else (t_out, None)
 
-    ce_sum, n_tok = masked_cross_entropy(s_logits, labels)
-    n_tok = torch.clamp(n_tok, min=1)
+    ce_sum, local_n = masked_cross_entropy(s_logits, labels)
+    n_tok = torch.clamp(local_n if n_tok is None else n_tok, min=1)
     ce = ce_sum / n_tok
     loss = dcfg.ce_weight * ce
     metrics = {"ce": ce}
@@ -112,8 +123,7 @@ def distill_loss(student_params, teacher_params, batch: Dict[str, torch.Tensor],
         t_sel = t_hidden[torch.as_tensor(idx, device=t_hidden.device)]
         mask = (labels != LABEL_IGNORE)[None, :, :, None]
         diff = (s_hidden.float() - t_sel.float()) ** 2
-        mse = torch.where(mask, diff, 0.0).sum() / (
-            torch.clamp(mask.sum(), min=1) * s_hidden.shape[-1])
+        mse = torch.where(mask, diff, 0.0).sum() / (n_tok * s_hidden.shape[-1])
         loss = loss + dcfg.mse_weight * mse
         metrics["mse"] = mse
     metrics["loss"] = loss
@@ -134,23 +144,49 @@ def global_norm(grads) -> torch.Tensor:
     return torch.sqrt(torch.stack(sq).sum())
 
 
+def _global_tokens(batch) -> torch.Tensor:
+    """The label-token count of the global batch (every rank's rows)."""
+    return mesh.all_reduce_sum_((batch["labels"] != LABEL_IGNORE).sum())
+
+
+def _sum_metrics(metrics):
+    """Each metric summed over the ranks (one all-reduce)."""
+    keys = list(metrics)
+    total = mesh.all_reduce_sum_(torch.stack([metrics[k] for k in keys]))
+    return dict(zip(keys, total.unbind()))
+
+
+def _sum_grads(grads):
+    """The gradients summed over the ranks through one flat fp32 buffer."""
+    present = [g for g in grads if g is not None]
+    flat = mesh.all_reduce_sum_(torch.cat([g.reshape(-1) for g in present]))
+    summed = iter(torch.split(flat, [g.numel() for g in present]))
+    return [None if g is None else next(summed).view_as(g) for g in grads]
+
+
 def make_train_step(student_config: WhisperConfig, teacher_config: WhisperConfig,
                     dcfg: DistillConfig, optimizer, policy: DtypePolicy = DtypePolicy(),
                     max_grad_norm: Optional[float] = 1.0):
     """The train step ``(student_params, opt_state, teacher_params, batch)
     -> (student_params, opt_state, metrics)``. The student's fp32 leaves
-    are updated in place and returned."""
+    are updated in place and returned. Made in a multi-process run,
+    ``batch`` is this rank's slice of the global batch, and the step is the
+    global batch's (see the module docstring)."""
+    data_parallel = mesh.initialized()
 
     def train_step(student_params, opt_state, teacher_params, batch):
         leaves = dict(named_leaves(student_params))
         paths = trainable_paths(student_params, dcfg.freeze_encoder)
         for path in paths:
             leaves[path].requires_grad_(True)
+        n_tok = _global_tokens(batch) if data_parallel else None
         loss, metrics = distill_loss(student_params, teacher_params, batch, student_config,
-                                     teacher_config, dcfg, policy)
+                                     teacher_config, dcfg, policy, n_tok)
         got = torch.autograd.grad(loss, [leaves[p] for p in paths], allow_unused=True)
-        grads = dict(zip(paths, got))
         metrics = {k: v.detach() for k, v in metrics.items()}
+        if data_parallel:
+            got, metrics = _sum_grads(got), _sum_metrics(metrics)
+        grads = dict(zip(paths, got))
         if max_grad_norm is not None:
             gnorm = global_norm(grads.values())
             scale = torch.clamp(max_grad_norm / (gnorm + 1e-6), max=1.0)
@@ -168,12 +204,15 @@ def make_train_step(student_config: WhisperConfig, teacher_config: WhisperConfig
 
 def make_eval_step(student_config: WhisperConfig, teacher_config: WhisperConfig,
                    dcfg: DistillConfig, policy: DtypePolicy = DtypePolicy()):
-    """Loss-only eval step: metrics of one batch, no gradients."""
+    """Loss-only eval step: metrics of one batch, no gradients (of the
+    global batch in a multi-process run, as in ``make_train_step``)."""
+    data_parallel = mesh.initialized()
 
     def eval_step(student_params, teacher_params, batch):
         with torch.no_grad():
+            n_tok = _global_tokens(batch) if data_parallel else None
             _, metrics = distill_loss(student_params, teacher_params, batch, student_config,
-                                      teacher_config, dcfg, policy)
-        return metrics
+                                      teacher_config, dcfg, policy, n_tok)
+            return _sum_metrics(metrics) if data_parallel else metrics
 
     return eval_step

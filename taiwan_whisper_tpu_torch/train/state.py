@@ -11,7 +11,9 @@ leaves hold no moments. The state is a plain dict of tensors and ints.
 ``CheckpointManager`` keeps ``checkpoint-N`` directories with rotation, a
 ``.keep`` mark for the best checkpoint and resume, in the port's own
 ``torch.save`` format (``state.pt``); it does not read the JAX package's
-orbax checkpoints.
+orbax checkpoints. In a multi-process run the state is replicated: rank 0
+alone clears, writes, marks and rotates, the other ranks wait for it at a
+named barrier, and every rank restores.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import numpy as np
 import torch
 
 from ..models.params import map_params, named_leaves
+from ..parallel import mesh
 
 Grads = Dict[str, Optional[torch.Tensor]]
 
@@ -192,18 +195,22 @@ class CheckpointManager:
         return sorted(steps)
 
     def save(self, step: int, state: Dict[str, Any], keep: bool = False):
+        """Every rank calls; rank 0 writes. No rank returns before the
+        checkpoint is complete and rotated."""
         path = self._path(step)
-        if os.path.exists(path):
-            # re-saving a step must not demote a protected checkpoint
-            keep = keep or os.path.exists(os.path.join(path, ".keep"))
-            shutil.rmtree(path)
-        os.makedirs(path)
-        tmp = os.path.join(path, _STATE + ".tmp")
-        torch.save(_detached(state), tmp)
-        os.replace(tmp, os.path.join(path, _STATE))
-        if keep:
-            open(os.path.join(path, ".keep"), "w").close()
-        self._rotate()
+        if mesh.is_main():
+            if os.path.exists(path):
+                # re-saving a step must not demote a protected checkpoint
+                keep = keep or os.path.exists(os.path.join(path, ".keep"))
+                shutil.rmtree(path)
+            os.makedirs(path)
+            tmp = os.path.join(path, _STATE + ".tmp")
+            torch.save(_detached(state), tmp)
+            os.replace(tmp, os.path.join(path, _STATE))
+            if keep:
+                open(os.path.join(path, ".keep"), "w").close()
+            self._rotate()
+        mesh.barrier(f"ckpt_done_{step}")
 
     def _rotate(self):
         if self.save_total_limit is None:

@@ -138,14 +138,18 @@ def test_unported_label_options_raise(tmp_path, weights, kw):
 
 
 @pytest.mark.parametrize("flag", [["--distributed"], ["--distributed", "--assistant", "draft"]])
-def test_cli_label_refuses_unported_flags(tmp_path, flag):
-    """``--distributed`` (ROADMAP Queue A 6) raises, naming the flag, before
-    any file is read, with or without ``--assistant`` (ported: see
+def test_cli_label_refuses_unported_flags(tmp_path, flag, monkeypatch):
+    """``--distributed`` (ported: tests/test_torch_multiprocess.py) without
+    a launcher's environment raises, naming the first variable missing,
+    before any file is read, with or without ``--assistant`` (ported: see
     test_cli_label_assistant_matches_jax_cli)."""
-    with pytest.raises(NotImplementedError, match=flag[0]):
+    for name in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(name, raising=False)
+    with pytest.raises(RuntimeError, match="RANK is not set"):
         port_cli.main(["label", "--manifest", str(tmp_path / "none.tsv"),
                        "--model", str(tmp_path / "none"), "--output_dir", str(tmp_path),
                        "--device", "cpu"] + flag)
+    assert os.listdir(tmp_path) == []
 
 
 def test_cli_label_shipped_args_matches_jax_cli(tmp_path, corpus, weights, monkeypatch):

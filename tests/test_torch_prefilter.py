@@ -213,9 +213,14 @@ def test_read_hyps_tsv_merges_shards_as_jax(tmp_path, capsys):
 
 
 def test_cli_prefilter_defaults_to_cuda_and_refuses_distributed(monkeypatch, setup, tmp_path):
+    """Without CUDA the default device raises; ``--distributed`` (ported:
+    tests/test_torch_multiprocess.py) without a launcher's environment
+    raises naming the first variable missing. Neither writes anything."""
     argv = ["prefilter", "--manifest", setup["manifest"], "--validator", setup["model_dir"],
             "--output_dir", str(tmp_path / "o")]
-    with pytest.raises(NotImplementedError, match="--distributed"):
+    monkeypatch.setenv("RANK", "0")
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(RuntimeError, match="WORLD_SIZE is not set"):
         port_cli.main(argv + ["--distributed", "--device", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):

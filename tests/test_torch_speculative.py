@@ -18,7 +18,7 @@ from taiwan_whisper_tpu.models.config import DtypePolicy as JaxPolicy
 from taiwan_whisper_tpu.models.config import WhisperConfig as JaxConfig
 from taiwan_whisper_tpu.models.params import init_params as jax_init_params
 from taiwan_whisper_tpu.models.params import init_student_from_teacher as jax_student
-from taiwan_whisper_tpu_torch.decode.greedy import greedy_decode
+from taiwan_whisper_tpu_torch.decode.greedy import cross_kv_mode, greedy_decode
 from taiwan_whisper_tpu_torch.decode.rules import DecodeRules
 from taiwan_whisper_tpu_torch.decode.speculative import speculative_decode
 from taiwan_whisper_tpu_torch.models import whisper as M
@@ -53,7 +53,7 @@ def teacher():
 
 @pytest.fixture(scope="module")
 def extend_jit():
-    return jax.jit(JM.extend, static_argnames=("config", "policy"))
+    return jax.jit(JM.extend, static_argnames=("config", "policy", "beams", "int8_dots"))
 
 
 @pytest.mark.parametrize("plen", [1, 2, 3, 4, 5, 6])
@@ -87,6 +87,43 @@ def test_extend_matches_jax(teacher, extend_jit, plen):
             keep = np.ones(s, bool)
             keep[written] = False
             np.testing.assert_array_equal(got[..., keep], before[..., keep])
+
+
+@pytest.mark.parametrize("beams,quantize", [(2, 0), (1, "8x8"), (2, "8x8")])
+def test_extend_beams_and_int8_dots_match_jax(teacher, extend_jit, beams, quantize):
+    """``extend`` with beams (2 rows per cross-K/V item) and on "8x8"
+    storage (int8 cross K/V, int8 x int8 dots), 3 tokens at offsets 0, 5
+    and 13 of a 16-position cache: logits to 1e-5 (plain storage) or to
+    1e-4 of the largest logit with equal argmax ("8x8", as
+    tests/test_torch_quant.py holds its steps), written cache positions to
+    1e-6."""
+    jp, jcfg, params, cfg = teacher
+    s, plen, items = 16, 3, 2
+    rng = np.random.RandomState(7)
+    enc = rng.randn(items, 60, 64).astype(np.float32)
+    bits, int8_dots = cross_kv_mode(quantize)
+    jkv = JM.precompute_cross_kv(jp, jnp.asarray(enc), jcfg, JFP32, quantize=bits)
+    kv = M.precompute_cross_kv(params, torch.from_numpy(enc), cfg, FP32, quantize=bits)
+    ck, cv = (rng.randn(2, items * beams, 4, 16, s).astype(np.float32) for _ in range(2))
+    for offset in (0, 5, s - plen):
+        tokens = rng.randint(0, MULTILINGUAL.vocab_size, (items * beams, plen)).astype(np.int32)
+        jlogits, jcache = extend_jit(jp, jkv, JM.KVCache(k=jnp.asarray(ck), v=jnp.asarray(cv)),
+                                     jnp.asarray(tokens), jnp.int32(offset), config=jcfg,
+                                     policy=JFP32, beams=beams, int8_dots=int8_dots)
+        cache = M.KVCache(k=time_minor_copy(torch.from_numpy(ck)),
+                          v=time_minor_copy(torch.from_numpy(cv)))
+        with torch.inference_mode():
+            logits = M.extend(params, kv, cache, torch.from_numpy(tokens), offset, cfg, FP32,
+                              beams=beams, int8_dots=int8_dots).numpy()
+        want = np.asarray(jlogits)
+        tol = 1e-4 * np.abs(want).max() if int8_dots else 1e-5
+        np.testing.assert_allclose(logits, want, atol=tol)
+        np.testing.assert_array_equal(logits.argmax(-1), want.argmax(-1))
+        written = slice(offset, offset + plen)
+        np.testing.assert_allclose(cache.k.numpy()[..., written],
+                                   np.asarray(jcache.k)[..., written], atol=1e-6)
+        np.testing.assert_allclose(cache.v.numpy()[..., written],
+                                   np.asarray(jcache.v)[..., written], atol=1e-6)
 
 
 def test_extend_refuses_positions_past_the_cache(teacher):
