@@ -4,8 +4,8 @@
     python3 chip_smoke.py kernels    # only the named phases
                                      # (kernels, label, label_vad, label_beam, longform,
                                      # speculative, prefilter, train, distributed,
-                                     # train_agree, agree; mel, layer_norm: those
-                                     # kernels' main cases)
+                                     # packed, sweep, train_agree, agree; mel,
+                                     # layer_norm: those kernels' main cases)
 
 (``chip_smoke.py _rank <cli args>`` is one rank of the distributed phase's
 multi-process runs, which the phase starts itself.)
@@ -25,8 +25,10 @@ Phases, each raising on failure:
    batch 64: encoder attention at 8 heads, cross on bf16 storage, self
    over a 448-position cache at index 447, 200 and 3) and the finetune
    path's (the encoder attention's LSE and backward at batch 8), fp32 at
-   the agree phases' (base, batch 4), the log-mel kernel at 32 and 64 x
-   30 s and with 128 mels, and the LayerNorm kernel (on no path, as in the JAX package) at
+   the agree phases' (base, batch 4), label_packed's (large-v2, batch 16:
+   encoder attention at 20 heads, cross on bf16 storage, self over a
+   448-position cache at index 447, 200 and 3), the log-mel kernel at 32,
+   64 and 16 x 30 s and with 128 mels, and the LayerNorm kernel (on no path, as in the JAX package) at
    the encoder's LN shape and at d = 384 and 4096; fails if ptxas spilled
    in the mel or LayerNorm kernels. The attention kernels are
    also held, both directions, at S = 300, at B = 1 and on q/k/v that are
@@ -148,6 +150,30 @@ Phases, each raising on failure:
    and ``hf_export`` tensors must equal the plain run's bitwise and whose
    ``metrics.jsonl`` must hold ``eval/gen_mer`` and both prediction
    tables; both step rates logged.
+6c. packed — the speaker-packing labeller (``pipeline/packing.py``) and
+   the corpus utilities on the card: 4 synthetic lectures of 120 s named
+   as video IDs, written as WAV, converted to FLAC by ``audio/ingest.py::
+   batch_convert``, measured by ``duration_stats`` and laid out by
+   ``audio/corpus.py::categorize_corpus`` (move=False; two EECS courses,
+   one Law course, one unknown video); each FLAC cut into utterances of
+   4-12 s under 2-3 speakers and packed by ``pack_utterances``; then
+   ``label_packed`` with the random large-v2 at batch 16 over 24 packs (2
+   batches, the second with 8 zero-audio pad rows), the default bf16
+   policy (bf16 cross K/V) and timestamps over the whole 448-position
+   budget: launch counters exact, the CSV's rows and columns checked,
+   packs/s, audio-s/s and ms per batch logged. Then the base preset at the
+   fp32 policy (TF32 off) on 4 packs, card vs CPU: ``id``,
+   ``condition_on_prev`` and ``text`` equal, transcripts agreeing on at
+   least 0.98 of characters (1 - CER); last ``utils/profiling.py``:
+   ``device_time`` of ``encode`` at batch 16 inside ``trace(dir)``, the
+   trace file parsed (its kernel events logged, not held).
+6d. sweep — ``cli sweep --target distill`` through the port's ``cli.main``
+   in this process: a grid of 2 learning rates, 2 steps at batch 8 a run,
+   on the large-v2 teacher, a 32-2 student and the train phase's repeated
+   segment: 2 records, 2 run directories with their ``hf_export``,
+   ``best.json`` naming a finite metric, each run's wall and peak device
+   memory logged and the second peak within 10% of the first, launch
+   counters exact over the sweep.
 7. train_agree — a small config (d 256, S 300: a ragged key tile) at the
    fp32 policy with TF32 off, trainable encoder: three train steps on the
    card and on the CPU plain path; losses agree to 1e-4 relative and the
@@ -219,6 +245,15 @@ LONGFORM_UTTS, LONGFORM_LECTURE_S, LONGFORM_PROMPT_S = 2, 50.0, 120.0
 # 64-token budget; speculative_decode takes k = 5 drafts by default
 SPEC_UTTS, SPEC_FILES, SPEC_SECONDS, SPEC_TOKENS, DRAFTS = 1, 2, 60.0, 64, 5
 FINETUNE_BATCH = 8
+# the packed phase: label_packed at large-v2, batch 16 over 24 speaker packs
+# (2 batches, the second with 8 zero-audio pad rows), the model's whole
+# 448-position budget, bf16 cross K/V; the packs come from 4 synthetic
+# lectures of 120 s cut into utterances of 4-12 s under 2-3 speakers
+PACK_BATCH, PACK_PACKS, PACK_BUDGET = 16, 24, 448
+PACK_LECTURES, PACK_SECONDS = 4, 120.0
+# the sweep phase: cli sweep --target distill over a grid of 2 learning
+# rates, 2 steps at batch 8 a run
+SWEEP_LRS, SWEEP_STEPS, SWEEP_BATCH = (1e-4, 1e-5), 2, 8
 DISTILL_STEPS, FINETUNE_STEPS = 6, 5
 CARD_BYTES = 76e9  # what a run may plan to hold of the card's 80 GB
 SPIN_CYCLES = 10000  # the marker kernels at the ends of a device-time trace (~5 us)
@@ -315,7 +350,10 @@ def kernel_device_ms(key: str, fn, torch, calls: int = 5, tries: int = 3) -> dic
     end of the trace, so a short spin kernel (``torch.cuda._sleep``) before
     and after the calls takes that place and is left out. A trace in which
     a kernel was still not seen a whole number of times per call is taken
-    again, up to ``tries`` traces, and the last one's shortfall raises."""
+    again after a second's pause, up to ``tries`` traces, and the last
+    one's shortfall raises (two retakes taken at once after a trace that
+    lost kernels have both come back empty; the pause gives the profiler
+    time to settle before the next)."""
     fn()
     torch.cuda.synchronize()
     for attempt in range(1, tries + 1):
@@ -332,6 +370,7 @@ def kernel_device_ms(key: str, fn, torch, calls: int = 5, tries: int = 3) -> dic
         log(f"[kernel] {key}: trace {attempt} of {tries} holds "
             + (", ".join(f"{k[:80]} x{e.count}" for k, e in traced.items()) or "no kernel")
             + f" over {calls} calls")
+        time.sleep(1.0)
     raise AssertionError(f"{key}: the profiler traced no whole set of the call's kernels "
                          f"in {tries} traces")
 
@@ -811,6 +850,20 @@ def phase_kernels(torch, entries: dict, checks: list, case_rows: list, only=None
     device_times(key, lambda: EA.encoder_attention(q, k, v),
                  lambda: F.scaled_dot_product_attention(qt, kt, vt), torch, checks)
     del q, k, v, qt, kt, vt
+    # label_packed's batch: bf16 [16, 1500, 20, 64]; unit inputs, tolerance 8e-3
+    q, k, v = (torch.randn((PACK_BATCH, T, H, D), generator=g, device=dev).to(bf16)
+               for _ in range(3))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    key = f"encoder_attention[bf16,B={PACK_BATCH},H={H}]"
+    record(key, "encoder_attention", enc_src, enc_rep,
+           EA.encoder_attention(q, k, v), EA.attention_plain(q, k, v), 8e-3,
+           time_ms(lambda: EA.encoder_attention(q, k, v), torch, flush=flush),
+           time_ms(lambda: EA.attention_plain(q, k, v), torch, iters=3, flush=flush),
+           bound_ms(4 * PACK_BATCH * T * H * D * 2, 4 * PACK_BATCH * H * T * T * D, "bf16"),
+           time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), torch, flush=flush))
+    device_times(key, lambda: EA.encoder_attention(q, k, v),
+                 lambda: F.scaled_dot_product_attention(qt, kt, vt), torch, checks)
+    del q, k, v, qt, kt, vt
     q, k, v = (torch.randn((AB, T, AH, D), generator=g, device=dev) for _ in range(3))
     record("encoder_attention[fp32,agree]", "encoder_attention", enc_src, enc_rep,
            EA.encoder_attention(q, k, v), EA.attention_plain(q, k, v), 1e-5,
@@ -885,6 +938,10 @@ def phase_kernels(torch, entries: dict, checks: list, case_rows: list, only=None
     cross_cases(PB, PH, bf16, lambda base: {"bf16": (base.to(bf16), (base * 0.5).to(bf16),
                                                      0.125, 1.0)},
                 1e-3, None, timed=("bf16",), tag=f",B={PB},H={PH}")
+    # label_packed: bf16 storage (unquantized cross K/V) at large-v2, batch 16
+    cross_cases(PACK_BATCH, H, bf16, lambda base: {"bf16": (base.to(bf16),
+                                                            (base * 0.5).to(bf16), 0.125, 1.0)},
+                1e-3, None, timed=("bf16",), tag=f",B={PACK_BATCH},H={H}")
     cross_tile_cases(torch, DA, checks, record, g, flush, dev)
     int8_dots_cases(torch, DA, checks, record, g, flush, dev)
     extend_cross_case(torch, DA, checks, record, g, flush, dev)
@@ -942,6 +999,10 @@ def phase_kernels(torch, entries: dict, checks: list, case_rows: list, only=None
     # a 4-block cluster, 200 and 3 run one block
     for index in (PREFILTER_BUDGET - 1, 200, 3):
         self_case(PB, PH, PREFILTER_BUDGET, bf16, None, 1e-3, index, tag=f",B={PB},H={PH}")
+    # label_packed: large-v2 at batch 16 over the whole 448-position budget
+    for index in (PACK_BUDGET - 1, 200, 3):
+        self_case(PACK_BATCH, H, PACK_BUDGET, bf16, None, 1e-3, index,
+                  tag=f",B={PACK_BATCH},H={H}")
     # the beam label path: the beams are batch rows to the self kernel, B x K
     # = 40, at the last step of its budget
     self_case(BEAM_BATCH * BEAMS, H, 3 + BEAM_TOKENS, bf16, None, 1e-3,
@@ -980,7 +1041,8 @@ def mel_cases(torch, entries, checks, record, g, flush):
 
     dev = flush.device
     src, rep = "taiwan_whisper_tpu_torch/csrc/mel.cu", "taiwan_whisper_tpu/ops/mel_kernel.py:60"
-    for b, m in ((LARGE_V2_BATCH, 80), (AGREE_BATCH, 128), (PREFILTER_BATCH, 80)):
+    for b, m in ((LARGE_V2_BATCH, 80), (AGREE_BATCH, 128), (PREFILTER_BATCH, 80),
+                 (PACK_BATCH, 80)):
         audio = torch.randn((b, A.N_SAMPLES), generator=g, device=dev) * 0.1
         key = {LARGE_V2_BATCH: "mel", AGREE_BATCH: f"mel[{m} mels]"}.get(b, f"mel[b{b}]")
         row = record(
@@ -2494,6 +2556,311 @@ def phase_distributed(torch, entries: dict, results: dict, model_dir: str):
     results["distributed"] = dict(out, phase_seconds=phase_s)
 
 
+def _pair_vocab(tok_dir: str):
+    """A vocab in which every text id decodes: ids 0-255 the bytes, then
+    byte pairs up to <|endoftext|> (random weights sample ids over the
+    whole vocabulary, which a byte vocab would drop from the text)."""
+    from taiwan_whisper_tpu_torch.text.tokenizer import MULTILINGUAL, bytes_to_unicode
+
+    chars = list(bytes_to_unicode().values())
+    vocab = {ch: i for i, ch in enumerate(chars)}
+    vocab.update({chars[i // 256] + chars[i % 256]: i for i in range(256, MULTILINGUAL.eot)})
+    with open(os.path.join(tok_dir, "vocab.json"), "w", encoding="utf-8") as f:
+        json.dump(vocab, f)
+    with open(os.path.join(tok_dir, "merges.txt"), "w", encoding="utf-8") as f:
+        f.write("#version: 0.2\n")
+
+
+def _packed_corpus(tmp: str, rng):
+    """Synthetic lectures named as video IDs, written as WAV, converted to
+    FLAC by ``batch_convert``, measured by ``duration_stats`` and laid out by
+    ``categorize_corpus`` (``move=False``: two EECS courses, one Law course,
+    one video with no course); each FLAC cut into utterances of 4-12 s, the
+    speaker changing with probability 0.4 among 2 or 3 a lecture. Returns
+    (utterances, corpus facts)."""
+    from taiwan_whisper_tpu_torch.audio import corpus, ingest
+    from taiwan_whisper_tpu_torch.audio.io import load_audio_16k, write_wav
+    from taiwan_whisper_tpu_torch.pipeline.packing import Utterance
+    from taiwan_whisper_tpu_torch.tools.synth_audio import synth_lecture
+
+    raw, flac = os.path.join(tmp, "raw"), os.path.join(tmp, "flac")
+    os.makedirs(raw)
+    vids = [f"vid{i:04d}" for i in range(PACK_LECTURES)]
+    n = int(PACK_SECONDS * 16000)
+    for v in vids:
+        write_wav(os.path.join(raw, v + ".wav"), synth_lecture(rng, PACK_SECONDS)[:n])
+    t0 = time.perf_counter()
+    converted = ingest.batch_convert([os.path.join(raw, v + ".wav") for v in vids], flac,
+                                     num_workers=4)
+    convert_s = time.perf_counter() - t0
+    dsts = [d for _, d in converted]
+    stats = ingest.duration_stats(dsts)
+    vid_to_sid = {vids[0]: "901_001", vids[1]: "901_002", vids[2]: "A01_003"}
+    layout = corpus.categorize_corpus(dsts, os.path.join(tmp, "bucketed"), vid_to_sid,
+                                      move=False)
+    log(f"[packed] batch_convert: {len(dsts)} WAV -> FLAC in {convert_s:.2f} s; "
+        f"duration_stats: {stats.n_files} files, {stats.total_seconds:.1f} s (min "
+        f"{stats.min_seconds:.1f}, max {stats.max_seconds:.1f}); categorize_corpus: "
+        f"{layout.categories}, unknown {layout.unknown_vids}")
+    if None in dsts or stats.n_files != PACK_LECTURES or \
+            abs(stats.total_seconds - PACK_LECTURES * PACK_SECONDS) > 0.05 or \
+            layout.categories != {"900": 2, "A00": 1, "unknown": 1} or \
+            layout.unknown_vids != [vids[3]] or any(os.path.exists(d) for d in
+                                                    layout.moved.values()):
+        raise AssertionError(f"ingest / corpus: {converted} {stats} {layout}")
+    utts = []
+    for i, (v, path) in enumerate(zip(vids, dsts)):
+        audio, s, spk, k = load_audio_16k(path), 0, 0, 0
+        while s < len(audio):
+            m = int(rng.uniform(4.0, 12.0) * 16000)
+            if rng.rand() < 0.4:
+                spk = int(rng.randint(2 + i % 2))
+            utts.append(Utterance(audio[s:s + m], f"{v} utterance {k}", f"{v}_spk{spk}"))
+            s, k = s + m, k + 1
+    facts = dict(convert_s=convert_s, total_seconds=stats.total_seconds,
+                 categories=layout.categories, utterances=len(utts))
+    return utts, facts
+
+
+def _read_rows(path: str):
+    import csv
+
+    with open(path, encoding="utf-8", newline="") as f:
+        return list(csv.reader(f))
+
+
+def phase_packed(torch, entries: dict, results: dict, model_dir: str):
+    """The speaker-packing labeller on the card: ingest and corpus layout
+    (``_packed_corpus``), ``pack_utterances``, then ``label_packed`` with the
+    random large-v2 at batch 16 over ``PACK_PACKS`` packs (2 batches, the
+    second with 8 zero-audio pad rows), the default bf16 policy (bf16 cross
+    K/V) and timestamps, a CSV flush after every batch, each batch decoding
+    the model's whole 448-position budget (random weights never emit eot):
+    launch counters zeroed just before and checked just after, the CSV's
+    rows and columns checked. Then the base preset at the fp32 policy (TF32
+    off) on 4 packs over the whole budget, card against CPU: ``id``,
+    ``condition_on_prev`` and ``text`` equal, ``whisper_transcript`` agreeing
+    on at least 0.98 of its characters (1 - CER). Last ``utils/profiling``:
+    ``device_time`` of ``encode`` at batch 16 inside ``trace(dir)``, whose
+    trace file must parse (its kernel events are logged, not held: the
+    profiler is known to drop some)."""
+    from taiwan_whisper_tpu_torch import DtypePolicy, get_config
+    from taiwan_whisper_tpu_torch.audio.mel import N_SAMPLES, pad_or_trim
+    from taiwan_whisper_tpu_torch.models import whisper as M
+    from taiwan_whisper_tpu_torch.models.io import load_model
+    from taiwan_whisper_tpu_torch.models.params import init_params, prepare_params
+    from taiwan_whisper_tpu_torch.ops.mel_kernel import log_mel
+    from taiwan_whisper_tpu_torch.pipeline import packing as PK
+    from taiwan_whisper_tpu_torch.text.metrics import edit_distance
+    from taiwan_whisper_tpu_torch.text.tokenizer import WhisperTokenizer
+    from taiwan_whisper_tpu_torch.utils import profiling
+
+    t_phase = time.perf_counter()
+    rng = np.random.RandomState(11)
+    with tempfile.TemporaryDirectory() as tmp:
+        utts, facts = _packed_corpus(tmp, rng)
+        packs = PK.pack_utterances(utts)
+        flags = [p.condition_on_prev for p in packs]
+        log(f"[packed] pack_utterances: {len(utts)} utterances -> {len(packs)} packs "
+            f"({sum(flags)} length splits flagged 1), the first {PACK_PACKS} labelled")
+        if len(packs) < PACK_PACKS or not 0 < sum(flags[:PACK_PACKS]) < PACK_PACKS:
+            raise AssertionError(f"pack_utterances: {len(packs)} packs, flags {flags}")
+        packs = packs[:PACK_PACKS]
+        audio_s = sum(len(p.audio) for p in packs) / 16000
+        tok_dir = os.path.join(tmp, "tok")
+        os.makedirs(tok_dir)
+        _pair_vocab(tok_dir)
+        tok = WhisperTokenizer.from_pretrained_dir(tok_dir)
+        params, cfg = load_model(model_dir)
+        policy = DtypePolicy()
+        params = prepare_params(params, policy, "cuda")
+        if cfg.max_target_positions != PACK_BUDGET:
+            raise AssertionError(f"large-v2 has {cfg.max_target_positions} positions")
+
+        batch_s = []
+        decode = PK.decode_audio
+
+        def timed_decode(*a, **k):
+            t = time.perf_counter()
+            res = decode(*a, **k)
+            torch.cuda.synchronize()
+            batch_s.append(time.perf_counter() - t)
+            return res
+
+        csv_path = os.path.join(tmp, "card", "packed.csv")
+        PK.decode_audio = timed_decode
+        try:
+            zero_counters()
+            t0 = time.perf_counter()
+            texts = PK.label_packed(params, cfg, tok, packs, csv_path, policy, language="zh",
+                                    batch_size=PACK_BATCH, timestamps=True, logging_steps=1,
+                                    device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read_counters()
+        finally:
+            PK.decode_audio = decode
+        batches = -(-PACK_PACKS // PACK_BATCH)
+        expected = label_launches(cfg, batches, PACK_BUDGET - 3)
+        log(f"[packed] label_packed large-v2 b{PACK_BATCH}: {PACK_PACKS} packs ({audio_s:.1f} "
+            f"s of audio), {batches} batches ({batches * PACK_BATCH - PACK_PACKS} pad rows), "
+            f"{PACK_BUDGET - 3} steps each: {PACK_PACKS / wall:.3f} packs/s, "
+            f"{audio_s / wall:.2f} audio-s/s (wall {wall:.2f} s; "
+            f"{' + '.join(f'{t * 1e3:.1f}' for t in batch_s)} ms by batch, "
+            f"{np.mean(batch_s) / (PACK_BUDGET - 3) * 1e3:.3f} ms a step)")
+        log(f"[packed] launches {json.dumps(launches)} expected {json.dumps(expected)}")
+        if len(batch_s) != batches or launches != expected:
+            raise AssertionError(f"label_packed: {len(batch_s)} batches, launch counts "
+                                 f"{launches} != expected {expected}")
+        add_launches(entries, results, "packed", launches)
+        rows = _read_rows(csv_path)
+        want = [["id", "condition_on_prev", "whisper_transcript", "text"]] + [
+            [p.speaker_id, str(p.condition_on_prev), t, p.text] for p, t in zip(packs, texts)]
+        if rows != want or len(texts) != PACK_PACKS or not all(texts):
+            raise AssertionError(f"label_packed CSV: {len(rows)} rows, first "
+                                 f"{rows[:2]}, want {want[:2]}")
+        log(f"[packed] CSV: header + {len(rows) - 1} rows of 4 columns; first transcript "
+            f"{texts[0][:80]!r}")
+
+        # card vs CPU: base at the fp32 policy, 4 packs, the whole budget
+        bcfg = get_config("base")
+        bparams = init_params(bcfg, seed=0, device="cpu", dtype=torch.float32)
+        sub = packs[:AGREE_BATCH]
+        cols = {}
+        for dev in ("cuda", "cpu"):
+            path = os.path.join(tmp, f"agree_{dev}.csv")
+            t0 = time.perf_counter()
+            PK.label_packed(bparams, bcfg, tok, sub, path, DtypePolicy.fp32(), language="zh",
+                            batch_size=AGREE_BATCH, device=dev)
+            log(f"[packed] base fp32 on {dev}: {time.perf_counter() - t0:.1f} s")
+            cols[dev] = list(zip(*_read_rows(path)[1:]))
+        errors = sum(edit_distance(list(c), list(g)) for c, g in zip(cols["cpu"][2],
+                                                                    cols["cuda"][2]))
+        chars = sum(len(c) for c in cols["cpu"][2])
+        agreement = 1.0 - errors / max(chars, 1)
+        same = [cols["cuda"][i] == cols["cpu"][i] for i in (0, 1, 3)]
+        log(f"[packed] base fp32 card vs CPU ({AGREE_BATCH} packs, {PACK_BUDGET - 3} steps): "
+            f"id / condition_on_prev / text equal {same}; transcripts agree on "
+            f"{agreement:.4f} of {chars} characters")
+        if not all(same) or agreement < 0.98 or not chars:
+            raise AssertionError(f"label_packed card vs CPU: columns equal {same}, "
+                                 f"character agreement {agreement:.4f} of {chars}")
+
+        # utils/profiling: encode at batch 16 timed inside a trace
+        audio = torch.from_numpy(np.stack([pad_or_trim(p.audio, N_SAMPLES)
+                                           for p in packs[:PACK_BATCH]])).cuda()
+        mel = log_mel(audio, cfg.num_mel_bins)
+        trace_dir = os.path.join(tmp, "trace")
+        with torch.inference_mode(), profiling.trace(trace_dir):
+            enc_s = profiling.device_time(lambda m: M.encode(params, m, cfg, policy), mel,
+                                          iters=3)
+        [trace_file] = os.listdir(trace_dir)
+        with open(os.path.join(trace_dir, trace_file), encoding="utf-8") as f:
+            events = json.load(f)["traceEvents"]
+        kernels = sum(1 for e in events if e.get("cat") == "kernel")
+        log(f"[packed] profiling.device_time(encode, b{PACK_BATCH}): {enc_s * 1e3:.2f} ms a "
+            f"call under the profiler; trace {trace_file}: {len(events)} events, {kernels} "
+            f"kernel events")
+    phase_s = time.perf_counter() - t_phase
+    log(f"[packed] phase wall {phase_s:.1f} s")
+    results["packed"] = dict(
+        packs=PACK_PACKS, batches=batches, audio_s=audio_s, wall_s=wall,
+        packs_per_s=PACK_PACKS / wall, audio_s_per_s=audio_s / wall,
+        batch_ms=[t * 1e3 for t in batch_s], agreement=agreement, encode_ms=enc_s * 1e3,
+        trace_events=len(events), trace_kernel_events=kernels, phase_seconds=phase_s, **facts)
+
+
+def phase_sweep(torch, entries: dict, results: dict, model_dir: str):
+    """``cli sweep --target distill`` through the port's ``cli.main`` in this
+    process: a grid of ``SWEEP_LRS`` at ``SWEEP_STEPS`` steps of batch
+    ``SWEEP_BATCH`` each, on the large-v2 teacher, a 32-2 student from ``cli
+    init-student`` and the train phase's repeated segment. Each run goes
+    through a wrapper of ``cli.main`` (the sweep's default runner) that
+    logs its wall and peak device memory (reset before it): 2 records, 2
+    run directories with their ``hf_export``, ``best.json`` naming a finite
+    metric, the second run's peak within 10% of the first's (a teacher or
+    optimizer kept alive across runs would show there), launch counters
+    zeroed before the sweep and checked after."""
+    from taiwan_whisper_tpu_torch import cli, get_config
+
+    t_phase = time.perf_counter()
+    cfg = get_config("large-v2")
+    with tempfile.TemporaryDirectory() as tmp:
+        manifest, tok_dir = _segment_corpus(tmp, 2 * SWEEP_BATCH)
+        student_dir = os.path.join(tmp, "student-32-2")
+        cli.main(["init-student", "--teacher", model_dir, "--out", student_dir,
+                  "--decoder_layers", "2"])
+        yaml_path = os.path.join(tmp, "sweep.yaml")
+        with open(yaml_path, "w", encoding="utf-8") as f:
+            f.write("method: grid\nmetric:\n  goal: minimize\n  name: train/loss\n"
+                    "parameters:\n  learning_rate:\n    values: [" +
+                    ", ".join(str(x) for x in SWEEP_LRS) + "]\n  max_steps:\n    value: "
+                    f"{SWEEP_STEPS}\n  batch_size:\n    value: {SWEEP_BATCH}\n")
+        runs = []
+        main = cli.main
+
+        def run_main(argv):
+            before = read_counters()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            try:
+                return main(argv)
+            finally:
+                torch.cuda.synchronize()
+                runs.append(dict(wall_s=time.perf_counter() - t0,
+                                 peak_bytes=torch.cuda.max_memory_allocated(),
+                                 launches={k: n - before[k]
+                                           for k, n in read_counters().items()}))
+
+        out = os.path.join(tmp, "sweep")
+        cli.main = run_main
+        try:
+            zero_counters()
+            summary = main(["sweep", "--config", yaml_path, "--target", "distill",
+                            "--output_dir", out, "--extra", "--manifest", manifest,
+                            "--teacher", model_dir, "--student", student_dir,
+                            "--warmup_steps", "0", "--language", "zh",
+                            "--tokenizer_dir", tok_dir, "--logging_steps", "1"])
+            torch.cuda.synchronize()
+            launches = read_counters()
+        finally:
+            cli.main = main
+        with open(os.path.join(out, "sweep_results.jsonl"), encoding="utf-8") as f:
+            records = [json.loads(line) for line in f]
+        with open(os.path.join(out, "best.json"), encoding="utf-8") as f:
+            best = json.load(f)
+        dirs = [r["params"]["output_dir"] for r in records]
+        exported = [os.path.exists(os.path.join(d, "hf_export", "model.safetensors"))
+                    for d in dirs]
+        none = {k: 0 for k in kernel_counters()}
+        expected = dict(none, mel=len(SWEEP_LRS) * SWEEP_STEPS,
+                        encoder_attention=len(SWEEP_LRS) * SWEEP_STEPS * cfg.encoder_layers)
+        for r, run in zip(records, runs):
+            log(f"[sweep] run {r['run']} lr {r['params']['learning_rate']}: "
+                f"{r.get('error') or 'loss %.5f' % r['metric']}, wall {run['wall_s']:.1f} s, "
+                f"peak {run['peak_bytes'] / 1e9:.3f} GB, launches {json.dumps(run['launches'])}")
+        log(f"[sweep] best {best['best'] and best['best']['params']['learning_rate']} "
+            f"(metric {best['best'] and best['best']['metric']}); launches "
+            f"{json.dumps(launches)} expected {json.dumps(expected)}")
+        if len(records) != len(SWEEP_LRS) or len(runs) != len(SWEEP_LRS) or \
+                any("error" in r for r in records) or len(set(dirs)) != len(dirs) or \
+                not all(exported) or best != json.loads(json.dumps(summary)) or \
+                not best["best"] or not np.isfinite(best["best"]["metric"]):
+            raise AssertionError(f"cli sweep: records {records}, exported {exported}, "
+                                 f"best {best}")
+        peaks = [run["peak_bytes"] for run in runs]
+        if abs(peaks[1] - peaks[0]) > 0.1 * peaks[0]:
+            raise AssertionError(f"cli sweep: run peaks {peaks} differ by more than 10%")
+        if launches != expected:
+            raise AssertionError(f"sweep launch counts {launches} != expected {expected}")
+        add_launches(entries, results, "sweep", launches)
+    phase_s = time.perf_counter() - t_phase
+    log(f"[sweep] phase wall {phase_s:.1f} s")
+    results["sweep"] = dict(runs=runs, metrics=[r["metric"] for r in records],
+                            best_lr=best["best"]["params"]["learning_rate"],
+                            phase_seconds=phase_s)
+
+
 def phase_train_agree(torch, results: dict):
     """Three fp32 train steps with the encoder trainable, on the card and
     on the CPU: the card's fp32 kernels (forward with LSE, SIMT backward)
@@ -2770,7 +3137,8 @@ def main(argv) -> int:
         return rank_main(argv[1:])
     t_start = time.perf_counter()
     phases = argv or ["kernels", "label", "label_vad", "label_beam", "longform", "speculative",
-                      "prefilter", "train", "distributed", "train_agree", "agree"]
+                      "prefilter", "train", "distributed", "packed", "sweep", "train_agree",
+                      "agree"]
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -2787,7 +3155,7 @@ def main(argv) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         model_dir = (write_large_v2(tmp, torch)
                      if {"label", "label_vad", "label_beam", "longform", "speculative",
-                         "train", "distributed"} & set(phases)
+                         "train", "distributed", "packed", "sweep"} & set(phases)
                      else None)
         if "label" in phases:
             phase_label(torch, entries, results, model_dir)
@@ -2805,6 +3173,10 @@ def main(argv) -> int:
             phase_train(torch, entries, results, model_dir)
         if "distributed" in phases:
             phase_distributed(torch, entries, results, model_dir)
+        if "packed" in phases:
+            phase_packed(torch, entries, results, model_dir)
+        if "sweep" in phases:
+            phase_sweep(torch, entries, results, model_dir)
     if "train_agree" in phases:
         phase_train_agree(torch, results)
     if "agree" in phases:

@@ -19,12 +19,17 @@
         [--device cuda|cpu]
     python -m taiwan_whisper_tpu_torch.cli transcribe --audio ... --model ... \\
         --output_dir ... [--strategy chunked|sequential] [--format srt|vtt|txt|json]
+    python -m taiwan_whisper_tpu_torch.cli sweep --config sweep.yaml --target distill \\
+        --output_dir ... [--max_runs N] [--agent] --extra --manifest ... [--device cpu]
 
 Each subcommand takes the JAX CLI's flags and defaults
 (taiwan_whisper_tpu/cli.py); those that run a model also take
 ``--device``, and ``distill`` and ``finetune`` ``--compute_dtype`` (bf16,
 the JAX CLI's policy, or fp32) and ``--logging_steps``. label's and
 evaluate's ``--assistant`` load the draft model on the same device.
+``sweep`` runs no model itself: each of its runs is a call of this CLI's
+``main`` with the sweep's parameters and the ``--extra`` arguments, which
+carry ``--device``.
 
 Multi-process runs: launch the same command once per process with
 ``--distributed``, e.g.
@@ -37,8 +42,7 @@ on ``cuda:<LOCAL_RANK>`` unless ``--device`` names another. label and
 prefilter shard the manifest by rank, distill and finetune train data
 parallel over the ranks (``--batch_size`` is the global batch), evaluate
 and transcribe shard nothing. ``--model_parallel > 1`` (tensor parallel)
-raises NotImplementedError naming its ROADMAP item (Queue A 6); ``sweep``
-waits for a later slice (Queue A 7).
+raises NotImplementedError naming its ROADMAP item (Queue A 6).
 """
 
 from __future__ import annotations
@@ -336,6 +340,26 @@ def cmd_transcribe(args):
     return results
 
 
+def cmd_sweep(args):
+    from .pipeline.sweep import run_sweep, run_sweep_agent
+
+    if not args.agent and not args.config:
+        raise SystemExit("sweep: --config is required without --agent")
+    if args.agent:
+        summary = run_sweep_agent(
+            args.config, args.target, args.output_dir,
+            extra_argv=args.extra, sweep_id=args.sweep_id,
+            project=args.project, entity=args.entity, count=args.count,
+        )
+    else:
+        summary = run_sweep(
+            args.config, args.target, args.output_dir,
+            extra_argv=args.extra, max_runs=args.max_runs, seed=args.seed,
+        )
+    print(json.dumps(summary))
+    return summary
+
+
 def _add_model_common(p: argparse.ArgumentParser):
     p.add_argument("--tokenizer_dir", default=None,
                    help="dir with vocab.json/merges.txt (optional)")
@@ -519,6 +543,27 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--num_beams", type=int, default=1)
     _add_model_common(p)
     p.set_defaults(fn=cmd_transcribe)
+
+    p = sub.add_parser("sweep", help="HP sweep over a wandb-style YAML: local expansion "
+                                     "(default) or a hosted wandb agent (--agent)")
+    p.add_argument("--config", default=None,
+                   help="sweep YAML path (required unless --agent with --sweep_id)")
+    p.add_argument("--target", required=True, choices=["distill", "finetune", "evaluate"],
+                   help="subcommand every run invokes")
+    p.add_argument("--output_dir", required=True)
+    p.add_argument("--max_runs", type=int, default=0,
+                   help="cap grid size / number of random samples")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--agent", action="store_true",
+                   help="join/create a HOSTED wandb sweep (needs wandb + network)")
+    p.add_argument("--sweep_id", default=None,
+                   help="existing wandb sweep to join (with --agent)")
+    p.add_argument("--project", default=None)
+    p.add_argument("--entity", default=None)
+    p.add_argument("--count", type=int, default=None, help="max runs this agent executes")
+    p.add_argument("--extra", nargs=argparse.REMAINDER, default=[],
+                   help="extra argv appended to every run (e.g. --device cpu)")
+    p.set_defaults(fn=cmd_sweep)
 
     p = sub.add_parser("init-student", help="maximally-spaced student init")
     p.add_argument("--teacher", required=True)

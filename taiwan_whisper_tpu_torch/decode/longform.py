@@ -157,10 +157,11 @@ def chunk_with_stride(
 
 def decode_audio(params, audio: torch.Tensor, prefix: torch.Tensor, config: WhisperConfig,
                  rules: DecodeRules, policy: DtypePolicy, *, max_len=None, quantize_kv=0,
-                 num_beams: int = 1, device=None):
-    """One device batch of fp32 audio [B, N]: log-mel (kernel) -> encode ->
-    beam search when ``num_beams`` > 1, else greedy."""
-    mel = log_mel(audio, config.num_mel_bins)
+                 num_beams: int = 1, mel_fn=None, device=None):
+    """One device batch of fp32 audio [B, N]: log-mel (the kernel, or
+    ``mel_fn(audio)`` when given) -> encode -> beam search when
+    ``num_beams`` > 1, else greedy."""
+    mel = mel_fn(audio) if mel_fn is not None else log_mel(audio, config.num_mel_bins)
     with torch.inference_mode():
         enc = M.encode(params, mel, config, policy)
     if num_beams > 1:
