@@ -4,11 +4,13 @@
     python3 chip_smoke.py kernels    # only the named phases
                                      # (kernels, label, label_vad, label_beam, longform,
                                      # speculative, prefilter, train, distributed,
-                                     # packed, sweep, train_agree, agree; mel,
-                                     # layer_norm: those kernels' main cases)
+                                     # tensor_parallel, packed, sweep, train_agree,
+                                     # agree; mel, layer_norm: those kernels' main
+                                     # cases)
 
 (``chip_smoke.py _rank <cli args>`` is one rank of the distributed phase's
-multi-process runs, which the phase starts itself.)
+multi-process runs, and ``chip_smoke.py _tp_rank <spec>`` one of the
+tensor_parallel phase's; each phase starts its ranks itself.)
 
 Phases, each raising on failure:
 
@@ -63,7 +65,12 @@ Phases, each raising on failure:
    held to 4 steps of p8 of its row (max|V x scale| x pmax / 127, pmax
    the row's largest probability) and at most 1% of the rows off by more
    than 1e-6; and the 6-row,
-   batch-1 bf16 call ``extend`` makes at large-v2. The smoke holds no
+   batch-1 bf16 call ``extend`` makes at large-v2; and the shapes of
+   tensor parallel, a model rank's local heads: encoder attention forward
+   and backward at batch 8 with 10 and 5 heads (bf16; SDPA beside) and 10
+   (fp32, the tensor_parallel phase's), cross at 10 heads, batch 8, 1 and
+   5 rows (bf16 q on bf16 and fp8 storage, fp32 q on fp32 and fp8), self
+   at 10 heads over 131 positions (bf16, fp32). The smoke holds no
    older kernel, so it cannot compare with one:
    ``tools/ab_cross_kernel.py --parent DIR`` builds the cross kernel of
    another checkout and checks those calls bitwise against it.
@@ -74,7 +81,7 @@ Phases, each raising on failure:
    two runs' audio-s/s side by side. Every launch counter is zeroed just
    before each run and read just after, and must equal the count the run
    implies.
-4. label_vad — on 8 FLAC files of 170 s of speech-like lecture audio
+4. label_vad — on 2 FLAC files of 170 s of speech-like lecture audio
    (bursts between silent gaps), first the device VAD scorer on the card
    against the same scorer on the CPU, on the corpus's int16 segments:
    scores within ``VAD_TOL`` and equal regions; the VAD must keep more
@@ -96,15 +103,17 @@ Phases, each raising on failure:
 4c. longform — on the 32-2 student ``cli init-student`` cuts from the same
    checkpoint: ``cli evaluate`` with ``configs/eval_short.args`` (greedy
    and ``--num_beams 5``), ``eval_longform_sequential.args`` and
-   ``eval_longform_chunked.args`` on 2 utterances with references, ``cli
-   transcribe`` of a 50 s lecture (sequential, chunked), and
-   ``sequential_decode(temperatures=(0.0,))`` greedy and beam 5, which must
+   ``eval_longform_chunked.args`` on 1 utterance with a reference, ``cli
+   transcribe`` of a 50 s lecture (sequential: more than one window,
+   chunked: 2 chunks and the stride merge), and
+   ``sequential_decode(temperatures=(0.0,))`` greedy and beam 5 of a 90 s
+   lecture, which must
    run a conditioned prefill of more than 8 rows; every run's counters
    must show mel, encoder attention, cross and self launches.
 4d. speculative — the 32-2 student drafts, the random large-v2 verifies:
    ``cli evaluate @configs/eval_speculative.args`` on 1 utterance (448
    positions; a second took the phase past its 90 s) and ``cli label @configs/label_large_v2.args
-   --assistant`` on 2 FLAC lectures of 60 s with a 64-token budget; rounds,
+   --assistant`` on 1 FLAC lecture of 30 s with a 64-token budget; rounds,
    draft accept rate, RTF and audio-s/s of each; the counters must show
    mel, encoder attention, self attention and the cross kernel at 1 row
    (the student's steps) and 6 rows (``extend``).
@@ -120,7 +129,7 @@ Phases, each raising on failure:
    steps (positions 5-12, as ``tools/profile_label`` traces them, and
    420-427, where the self kernel runs 4-block clusters): device time per
    step by kernel, the device's busy share and the host's launch calls
-   per step. Last, the validator at fp32 on 4 segments over the whole
+   per step. Last, the validator at fp32 on 2 segments over the whole
    448-token budget (the self kernel's fp32 cache runs clusters of 2
    blocks from position 97, 4 from 193 and 8 from 385), card vs CPU:
    token agreement at least 0.98.
@@ -139,10 +148,10 @@ Phases, each raising on failure:
    LOCAL_RANK 0, MASTER_ADDR, MASTER_PORT) and a timeout, its launch
    counters read in the rank: ``cli label @configs/label_large_v2.args
    --distributed`` as 2 ranks sharing the card (no device collective, so
-   no NCCL communicator) on 4 FLAC lectures of 60 s with a 64-token
-   budget, each rank labelling 2 files, the CSVs byte-equal to a
+   no NCCL communicator) on 2 FLAC lectures of 60 s with a 64-token
+   budget, each rank labelling 1 file, the CSVs byte-equal to a
    one-process run; ``cli prefilter @configs/prefilter_base_0.4.args
-   --distributed`` as 2 ranks on the segments of 2 lectures of 260 s,
+   --distributed`` as 2 ranks on the segments of 1 lecture of 260 s,
    disjoint non-empty hyp shards and rank 0's merged files byte-equal to a
    one-process run; ``cli distill --distributed`` at world size 1 (the
    data-parallel step's NCCL all-reduces) from a 32-2 student, 3 steps at
@@ -150,7 +159,21 @@ Phases, each raising on failure:
    and ``hf_export`` tensors must equal the plain run's bitwise and whose
    ``metrics.jsonl`` must hold ``eval/gen_mer`` and both prediction
    tables; both step rates logged.
-6c. packed — the speaker-packing labeller (``pipeline/packing.py``) and
+6c. tensor_parallel — tensor parallel at full large-v2 width, 2 ranks
+   sharing the card at ``--model_parallel 2``, each joining over gloo
+   itself (NCCL refuses two ranks on one card; gloo stages the card's
+   tensors through the host, so nothing here is a speed), beside the same
+   jobs in this process, all at the fp32 policy through the port's API:
+   ``run_distillation`` of the 32-2 student (3 steps at batch 8, an eval
+   batch, ``gen_eval_batches`` 1: model group 0 decodes), ``run_finetuning``
+   with the encoder trainable (2 steps: the attention backward at 10
+   heads), greedy (fp8 cross K/V) and beam-5 decoding of 2 utterances
+   with large-v2, 32 tokens. Losses within 1e-4 relative and the
+   ``hf_export`` tensors (gathered over the model group) within 1e-4 of
+   one process; each rank's greedy and beam tokens agree on at least 0.98
+   of positions with one process; each rank's counters show every kernel
+   of each job.
+6d. packed — the speaker-packing labeller (``pipeline/packing.py``) and
    the corpus utilities on the card: 4 synthetic lectures of 120 s named
    as video IDs, written as WAV, converted to FLAC by ``audio/ingest.py::
    batch_convert``, measured by ``duration_stats`` and laid out by
@@ -162,12 +185,12 @@ Phases, each raising on failure:
    policy (bf16 cross K/V) and timestamps over the whole 448-position
    budget: launch counters exact, the CSV's rows and columns checked,
    packs/s, audio-s/s and ms per batch logged. Then the base preset at the
-   fp32 policy (TF32 off) on 4 packs, card vs CPU: ``id``,
+   fp32 policy (TF32 off) on 2 packs, card vs CPU: ``id``,
    ``condition_on_prev`` and ``text`` equal, transcripts agreeing on at
    least 0.98 of characters (1 - CER); last ``utils/profiling.py``:
    ``device_time`` of ``encode`` at batch 16 inside ``trace(dir)``, the
    trace file parsed (its kernel events logged, not held).
-6d. sweep — ``cli sweep --target distill`` through the port's ``cli.main``
+6e. sweep — ``cli sweep --target distill`` through the port's ``cli.main``
    in this process: a grid of 2 learning rates, 2 steps at batch 8 a run,
    on the large-v2 teacher, a 32-2 student and the train phase's repeated
    segment: 2 records, 2 run directories with their ``hf_export``,
@@ -224,6 +247,7 @@ PREFILTER_BATCH, PREFILTER_BUDGET = 64, 448
 PREFILTER_LECTURES, PREFILTER_SECONDS, PREFILTER_MIN_SEGMENTS = 8, 260.0, 65
 # (first position, steps) of each traced window of the validator's loop
 PREFILTER_TRACE_WINDOWS = ((5, 8), (420, 8))
+PREFILTER_AGREE = 2  # segments of the validator's fp32 card-vs-CPU check
 LABEL_FILES, LABEL_SECONDS, MAX_DECODE_TOKENS = 8, 170.0, 192
 AGREE_BATCH, AGREE_TOKENS = 4, 32
 # configs/label_large_v2_beam.args: batch 8, 5 beams; the beam label phase
@@ -236,14 +260,18 @@ BEAM_TRACE_WINDOW = (3 + 24, 8)
 # beam-5 prefill of the sot sequence, a conditioned prefill (<|startofprev|>
 # + 223 prompt tokens + the sot sequence), and that prefill under 5 beams
 TILE_ROWS = (5, 15, 227, 1135)
-# the long-form phase: 2 test utterances (evaluate), one lecture (transcribe)
-# and a longer one for sequential_decode's prompts, which grow window by window
-LONGFORM_UTTS, LONGFORM_LECTURE_S, LONGFORM_PROMPT_S = 2, 50.0, 120.0
+# the long-form phase: 1 test utterance (evaluate), one lecture of two 30 s
+# windows and two strided chunks (transcribe) and a longer one for
+# sequential_decode's prompts, which grow window by window to the 223-token
+# cap (a 227-row conditioned prefill)
+LONGFORM_UTTS, LONGFORM_LECTURE_S, LONGFORM_PROMPT_S = 1, 50.0, 90.0
 # the speculative phase (within 90 s): cli evaluate
 # @configs/eval_speculative.args on 1 utterance (445 tokens with random
-# weights, ~23 s), cli label --assistant on 2 FLAC lectures of 60 s with a
+# weights, ~23 s), cli label --assistant on 1 FLAC lecture of 30 s with a
 # 64-token budget; speculative_decode takes k = 5 drafts by default
-SPEC_UTTS, SPEC_FILES, SPEC_SECONDS, SPEC_TOKENS, DRAFTS = 1, 2, 60.0, 64, 5
+SPEC_UTTS, SPEC_FILES, SPEC_SECONDS, SPEC_TOKENS, DRAFTS = 1, 1, 30.0, 64, 5
+# the label_vad phase: 2 FLAC lectures of 170 s (one batch of chunks)
+LABEL_VAD_FILES = 2
 FINETUNE_BATCH = 8
 # the packed phase: label_packed at large-v2, batch 16 over 24 speaker packs
 # (2 batches, the second with 8 zero-audio pad rows), the model's whole
@@ -251,10 +279,22 @@ FINETUNE_BATCH = 8
 # lectures of 120 s cut into utterances of 4-12 s under 2-3 speakers
 PACK_BATCH, PACK_PACKS, PACK_BUDGET = 16, 24, 448
 PACK_LECTURES, PACK_SECONDS = 4, 120.0
+PACK_AGREE = 2  # packs of the base fp32 card-vs-CPU check
 # the sweep phase: cli sweep --target distill over a grid of 2 learning
 # rates, 2 steps at batch 8 a run
 SWEEP_LRS, SWEEP_STEPS, SWEEP_BATCH = (1e-4, 1e-5), 2, 8
-DISTILL_STEPS, FINETUNE_STEPS = 6, 5
+# the tensor_parallel phase (within 150 s): 2 ranks on the card at
+# --model_parallel 2 over gloo, at the fp32 policy: distill 3 steps at
+# batch 8 with a generation eval, finetune 2 steps (encoder trainable),
+# greedy (fp8 cross K/V) and beam-5 decoding of 2 utterances
+TP_RANKS, TP_STEPS, TP_FINETUNE_STEPS, TP_BATCH = 2, 3, 2, 8
+TP_UTTS, TP_TOKENS = 2, 32
+# the jobs of each set of TP_RANKS ranks; the sets run at once, beside the
+# one-process jobs (gloo stages every all-reduce through the host: the
+# ranks' jobs take 3-4x the one-process walls), which run largest first,
+# while the ranks still load
+TP_RANK_SETS = (("finetune",), ("distill",), ("decode",))
+DISTILL_STEPS, FINETUNE_STEPS = 4, 3
 CARD_BYTES = 76e9  # what a run may plan to hold of the card's 80 GB
 SPIN_CYCLES = 10000  # the marker kernels at the ends of a device-time trace (~5 us)
 # card vs CPU device VAD scorer (both fp32; cuFFT against pocketfft)
@@ -430,6 +470,29 @@ def bf16_ulp(x: float) -> float:
 
 def max_abs(a, b) -> float:
     return float((a.detach().float() - b.detach().float()).abs().max())
+
+
+def exports_max_abs(path_a: str, path_b: str):
+    """(whether two fp32 safetensors files hold the same names and shapes,
+    the largest |a - b| over their tensors or None), read through memory
+    maps one tensor at a time: a 32-2 student's export is ~3 GB."""
+    def layout(path):
+        with open(path, "rb") as f:
+            n = int.from_bytes(f.read(8), "little")
+            header = json.loads(f.read(n))
+        header.pop("__metadata__", None)
+        return np.memmap(path, np.uint8, "r", offset=8 + n), header
+
+    (ma, ha), (mb, hb) = layout(path_a), layout(path_b)
+    if ha.keys() != hb.keys() or any(ha[k]["shape"] != hb[k]["shape"] or ha[k]["dtype"] != "F32"
+                                     or hb[k]["dtype"] != "F32" for k in ha):
+        return False, None
+    err = 0.0
+    for k in ha:
+        (a0, a1), (b0, b1) = ha[k]["data_offsets"], hb[k]["data_offsets"]
+        diff = np.abs(ma[a0:a1].view(np.float32) - mb[b0:b1].view(np.float32))
+        err = max(err, float(diff.max()) if diff.size else 0.0)
+    return True, err
 
 
 # ---------------------------------------------------------------------------
@@ -864,6 +927,29 @@ def phase_kernels(torch, entries: dict, checks: list, case_rows: list, only=None
     device_times(key, lambda: EA.encoder_attention(q, k, v),
                  lambda: F.scaled_dot_product_attention(qt, kt, vt), torch, checks)
     del q, k, v, qt, kt, vt
+    # tensor parallel: a model rank's local heads at the distill / finetune
+    # batch, 10 of large-v2's 20 at --model_parallel 2 and 5 at 4 (bf16,
+    # unit inputs, tolerance 8e-3 as above), and the fp32 kernel at 10
+    # heads, which the tensor_parallel phase's fp32 runs launch (tolerance
+    # 1e-5 as for the agree phase's)
+    for h, dtype in ((H // 2, bf16), (H // 4, bf16), (H // 2, f32)):
+        q, k, v = (torch.randn((TP_BATCH, T, h, D), generator=g, device=dev).to(dtype)
+                   for _ in range(3))
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        kind = str(dtype)[6:]
+        key = f"encoder_attention[{kind},B={TP_BATCH},H={h}]"
+        record(key, "encoder_attention", enc_src, enc_rep,
+               EA.encoder_attention(q, k, v), EA.attention_plain(q, k, v),
+               8e-3 if dtype == bf16 else 1e-5,
+               time_ms(lambda: EA.encoder_attention(q, k, v), torch, flush=flush),
+               time_ms(lambda: EA.attention_plain(q, k, v), torch, iters=3, flush=flush),
+               bound_ms(4 * TP_BATCH * T * h * D * q.element_size(),
+                        4 * TP_BATCH * h * T * T * D, "bf16" if dtype == bf16 else "fp32"),
+               time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), torch, flush=flush))
+        if dtype == bf16:
+            device_times(key, lambda: EA.encoder_attention(q, k, v),
+                         lambda: F.scaled_dot_product_attention(qt, kt, vt), torch, checks)
+        del q, k, v, qt, kt, vt
     q, k, v = (torch.randn((AB, T, AH, D), generator=g, device=dev) for _ in range(3))
     record("encoder_attention[fp32,agree]", "encoder_attention", enc_src, enc_rep,
            EA.encoder_attention(q, k, v), EA.attention_plain(q, k, v), 1e-5,
@@ -886,11 +972,11 @@ def phase_kernels(torch, entries: dict, checks: list, case_rows: list, only=None
     # storage, 1 and 3 rows) and the prefilter's (bf16 storage, base at
     # batch 64) are also timed back to back, per kernel and on the host,
     # with a bitwise rerun.
-    def cross_cases(b, h, q_dtype, stores, tol, entry, timed=("fp8",), tag=""):
+    def cross_cases(b, h, q_dtype, stores, tol, entry, timed=("fp8",), tag="", n_rows=(1, 3)):
         base = torch.randn((b, h, D, T), generator=g, device=dev)
         for store, (kq, vq, q_scale, v_scale) in stores(base).items():
             kq, vq = DA.time_minor_copy(kq), DA.time_minor_copy(vq)
-            for rows in (1, 3):
+            for rows in n_rows:
                 qs = (torch.randn((b, rows, h, D), generator=g, device=dev)
                       * q_scale).to(q_dtype)
                 # the library: SDPA over the K/V in q's dtype (quantized
@@ -942,6 +1028,17 @@ def phase_kernels(torch, entries: dict, checks: list, case_rows: list, only=None
     cross_cases(PACK_BATCH, H, bf16, lambda base: {"bf16": (base.to(bf16),
                                                             (base * 0.5).to(bf16), 0.125, 1.0)},
                 1e-3, None, timed=("bf16",), tag=f",B={PACK_BATCH},H={H}")
+    # tensor parallel: a model rank's 10 heads at the distill batch, 1 row
+    # (a greedy step) and 5 (a beam-5 step): bf16 q on bf16 and fp8 storage
+    # (a bf16 run's), fp32 q on fp32 and fp8 storage (the tensor_parallel
+    # phase's fp32 generation eval and decodes)
+    cross_cases(TP_BATCH, H // 2, bf16, lambda base: {
+        "bf16": (base.to(bf16), (base * 0.5).to(bf16), 0.125, 1.0),
+        "fp8": quantized(base)["fp8"]}, 1e-3, None, timed=("bf16", "fp8"),
+        tag=f",B={TP_BATCH},H={H // 2}", n_rows=(1, BEAMS))
+    cross_cases(TP_BATCH, H // 2, f32, lambda base: {
+        "fp32": (base, base * 0.5, 0.125, 1.0), "fp8": quantized(base)["fp8"]}, 1e-5, None,
+        timed=(), tag=f",B={TP_BATCH},H={H // 2}", n_rows=(1, BEAMS))
     cross_tile_cases(torch, DA, checks, record, g, flush, dev)
     int8_dots_cases(torch, DA, checks, record, g, flush, dev)
     extend_cross_case(torch, DA, checks, record, g, flush, dev)
@@ -1007,6 +1104,10 @@ def phase_kernels(torch, entries: dict, checks: list, case_rows: list, only=None
     # = 40, at the last step of its budget
     self_case(BEAM_BATCH * BEAMS, H, 3 + BEAM_TOKENS, bf16, None, 1e-3,
               tag=f",B={BEAM_BATCH}x{BEAMS}")
+    # tensor parallel: a model rank's 10 heads at the distill batch over the
+    # generation eval's budget (3 + 128 positions), bf16 and fp32
+    for dtype, tol in ((bf16, 1e-3), (f32, 1e-5)):
+        self_case(TP_BATCH, H // 2, 3 + 128, dtype, None, tol, tag=f",B={TP_BATCH},H={H // 2}")
     attention_backward_cases(torch, entries, checks, record, g, flush)
     for key, t in layer_norm_cases(torch, entries, checks, record, g, flush).items():
         one_kernel(key, t)
@@ -1155,6 +1256,27 @@ def attention_backward_cases(torch, entries, checks, record, g, flush):
                      for _ in range(4))
     case("encoder_attention_bwd[fp32,agree]", q, k, v, dout, 1e-5, None, "fp32")
     del q, k, v, dout
+    # tensor parallel: a model rank's local heads at the finetune batch, 10
+    # and 5 of 20 (bf16, the rule above, SDPA's backward beside), and the
+    # fp32 kernels at 10 (the tensor_parallel phase's finetune; 1e-5)
+    for h, dtype in ((10, bf), (5, bf), (10, torch.float32)):
+        q, k, v, dout = (torch.randn((FINETUNE_BATCH, T, h, D), generator=g, device=dev)
+                         .to(dtype) for _ in range(4))
+        key = f"encoder_attention_bwd[{str(dtype)[6:]},B={FINETUNE_BATCH},H={h}]"
+        if dtype == bf:
+            qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+            o_sdpa = F.scaled_dot_product_attention(qt, kt, vt)
+            do_t = dout.transpose(1, 2)
+
+            def sdpa_backward():
+                return torch.autograd.grad(o_sdpa, (qt, kt, vt), do_t, retain_graph=True)
+
+            case(key, q, k, v, dout, None, time_ms(sdpa_backward, torch, flush=flush), "bf16",
+                 sdpa_backward)
+            del qt, kt, vt, o_sdpa, do_t
+        else:
+            case(key, q, k, v, dout, 1e-5, None, "fp32")
+        del q, k, v, dout
     attention_edge_cases(torch, checks, g, dev)
 
 
@@ -1322,6 +1444,24 @@ def write_large_v2(tmp: str, torch) -> str:
     return model_dir
 
 
+_students: dict = {}
+
+
+def student_32_2(model_dir: str) -> str:
+    """The 32-2 student ``cli init-student`` cuts from the random large-v2
+    (2 maximally spaced decoder layers, the encoder whole), written beside
+    it by the first phase that asks and read by every later one."""
+    if model_dir not in _students:
+        from taiwan_whisper_tpu_torch import cli
+
+        out = os.path.join(os.path.dirname(model_dir), "student-32-2")
+        t0 = time.perf_counter()
+        cli.main(["init-student", "--teacher", model_dir, "--out", out, "--decoder_layers", "2"])
+        log(f"[setup] cli init-student 32-2 in {time.perf_counter() - t0:.1f} s")
+        _students[model_dir] = out
+    return _students[model_dir]
+
+
 def label_launches(cfg, batches: int, tokens: int = MAX_DECODE_TOKENS) -> dict:
     """Kernel launches of ``batches`` greedy batches (label's, the
     prefilter's): random weights never emit eot, so every batch runs the
@@ -1455,12 +1595,10 @@ def phase_label_vad(torch, entries: dict, results: dict, model_dir: str):
     lectures. First the card-vs-CPU scorer check (which also warms the
     card's scorer), then three runs on the same corpus: the shipped one
     (one group buffer), the staged chunk route, and the resident route
-    with ``--group_segs 3`` (6 groups of 3 x 120 s: every other file spans
-    two groups, so groups seal mid-file, each of the 3 batches reads rows
-    from its neighbour buffer g+1, and buffers are freed while the upload
-    thread fills the next; ``--group_segs 1`` covers the same in 8
-    batches, each limited to two 120 s groups: 34.7 s on an H100, against
-    about 15 s for 3 batches). The three must write byte-equal CSVs, as
+    with ``--group_segs 3`` (groups of 3 x 120 s over ``LABEL_VAD_FILES``
+    files of 170 s: a file spans two groups, so groups seal mid-file,
+    batches read rows from a neighbour buffer, and buffers are freed while
+    the upload thread fills the next). The three must write byte-equal CSVs, as
     the JAX package's tests hold its routes to; the two resident runs
     bracket the chunk run for the route rates."""
     from taiwan_whisper_tpu_torch import cli, get_config
@@ -1474,11 +1612,11 @@ def phase_label_vad(torch, entries: dict, results: dict, model_dir: str):
     with tempfile.TemporaryDirectory() as tmp:
         audio_dir = os.path.join(tmp, "audio")
         os.makedirs(audio_dir)
-        names = write_lecture_flacs(audio_dir, LABEL_FILES, LABEL_SECONDS, seed=0)
+        names = write_lecture_flacs(audio_dir, LABEL_VAD_FILES, LABEL_SECONDS, seed=0)
         manifest = os.path.join(tmp, "manifest.tsv")
         write_manifest(manifest, Manifest(root=audio_dir, paths=names))
         kept = vad_agree(torch, results, [os.path.join(audio_dir, n) for n in names])
-        total = LABEL_FILES * LABEL_SECONDS
+        total = LABEL_VAD_FILES * LABEL_SECONDS
         log(f"[label_vad] the VAD kept {kept:.1f} s of {total:.1f} s ({kept / total:.3f})")
         if not 0.0 < kept < total:
             raise AssertionError(f"the VAD kept {kept} s of {total} s")
@@ -1506,7 +1644,7 @@ def phase_label_vad(torch, entries: dict, results: dict, model_dir: str):
                 f"{len(csvs[route])} CSVs")
             log(f"[label_vad] {route} launches {json.dumps(launches)} expected "
                 f"{json.dumps(expected)}")
-            if (stats["files"] != LABEL_FILES or len(csvs[route]) != LABEL_FILES
+            if (stats["files"] != LABEL_VAD_FILES or len(csvs[route]) != LABEL_VAD_FILES
                     or not stats["batches"]):
                 raise AssertionError(f"label_vad {route} run incomplete: {stats}")
             if launches != expected:
@@ -1655,17 +1793,18 @@ def phase_longform(torch, entries: dict, results: dict, model_dir: str):
     ``eval_longform_sequential.args`` and ``eval_longform_chunked.args``
     (manifest, model and vocab overridden) on ``LONGFORM_UTTS`` speech-like
     utterances with zh/en references; ``cli transcribe`` of a
-    ``LONGFORM_LECTURE_S`` lecture, sequential (srt) and chunked (json);
-    then ``sequential_decode(temperatures=(0.0,))`` on a
+    ``LONGFORM_LECTURE_S`` lecture, sequential (srt; more than one window
+    must run) and chunked (json; more than one chunk, so the stride merge
+    runs); then ``sequential_decode(temperatures=(0.0,))`` on a
     ``LONGFORM_PROMPT_S`` lecture, greedy and beam 5, which prompts each
     window after the first with the text before it: a conditioned prefill
     of more than 8 rows must run (times 5 rows under beam). Each run's counters are zeroed before and read after;
     mel, encoder attention, cross and self must each have launched, and
     each output must be there."""
     from taiwan_whisper_tpu_torch import DtypePolicy, cli, get_config
-    from taiwan_whisper_tpu_torch.audio.io import write_flac
+    from taiwan_whisper_tpu_torch.audio.io import load_audio_16k, write_flac
     from taiwan_whisper_tpu_torch.audio.manifest import Manifest, write_manifest
-    from taiwan_whisper_tpu_torch.decode.longform import sequential_decode
+    from taiwan_whisper_tpu_torch.decode.longform import chunk_with_stride, sequential_decode
     from taiwan_whisper_tpu_torch.models.io import load_model
     from taiwan_whisper_tpu_torch.models.params import prepare_params
     from taiwan_whisper_tpu_torch.text.tokenizer import WhisperTokenizer
@@ -1693,11 +1832,7 @@ def phase_longform(torch, entries: dict, results: dict, model_dir: str):
         return out
 
     with tempfile.TemporaryDirectory() as tmp:
-        student = os.path.join(tmp, "student-32-2")
-        t0 = time.perf_counter()
-        cli.main(["init-student", "--teacher", model_dir, "--out", student,
-                  "--decoder_layers", "2"])
-        log(f"[longform] init-student 32-2 in {time.perf_counter() - t0:.1f} s")
+        student = student_32_2(model_dir)
         tok_dir, test_dir, lec_dir = (os.path.join(tmp, k) for k in ("tok", "test", "lec"))
         for d in (tok_dir, test_dir, lec_dir):
             os.makedirs(d)
@@ -1712,6 +1847,7 @@ def phase_longform(torch, entries: dict, results: dict, model_dir: str):
         write_manifest(manifest, Manifest(root=test_dir, paths=[
             f"u{i}.flac" for i in range(LONGFORM_UTTS)]))
         [lecture] = write_lecture_flacs(lec_dir, 1, LONGFORM_LECTURE_S, seed=5)
+        audio = load_audio_16k(os.path.join(lec_dir, lecture))
 
         common = ["--manifest", manifest, "--model", student, "--tokenizer_dir", tok_dir]
         for name, argv in (
@@ -1736,11 +1872,20 @@ def phase_longform(torch, entries: dict, results: dict, model_dir: str):
                 "transcribe", "--audio", lec_dir, "--model", student, "--tokenizer_dir",
                 tok_dir, "--output_dir", out_dir, "--strategy", strategy, "--format", fmt]))
             written = os.path.join(out_dir, lecture.replace(".flac", f".{fmt}"))
-            log(f"[longform] transcribe {strategy}: {segments}, {os.path.getsize(written)} "
-                f"bytes of {fmt}")
-            if not os.path.getsize(written) or list(segments.values()) == [0]:
-                raise AssertionError(f"transcribe {strategy}: {segments}")
-            runs[f"transcribe_{strategy}"]["segments"] = list(segments.values())[0]
+            # the windows sequential decoding encoded (one encode of one
+            # window launches the attention once a layer), the chunks
+            # chunked decoding cut (chunk_with_stride at its defaults)
+            pieces = (runs[f"transcribe_{strategy}"]["launches"]["encoder_attention"]
+                      // get_config("large-v2").encoder_layers if strategy == "sequential"
+                      else len(chunk_with_stride(audio)))
+            log(f"[longform] transcribe {strategy}: {segments}, {pieces} "
+                f"{'windows' if strategy == 'sequential' else 'chunks'}, "
+                f"{os.path.getsize(written)} bytes of {fmt}")
+            if not os.path.getsize(written) or list(segments.values()) == [0] or pieces < 2:
+                raise AssertionError(f"transcribe {strategy}: {segments}, {pieces} windows "
+                                     f"or chunks")
+            runs[f"transcribe_{strategy}"].update(segments=list(segments.values())[0],
+                                                  pieces=pieces)
 
         params, scfg = load_model(student)
         params = prepare_params(params, DtypePolicy(), "cuda")
@@ -1829,9 +1974,7 @@ def phase_speculative(torch, entries: dict, results: dict, model_dir: str):
     E.speculative_decode, L.speculative_decode = (recorded(f) for f in saved)
     try:
         with tempfile.TemporaryDirectory() as tmp:
-            student = os.path.join(tmp, "student-32-2")
-            cli.main(["init-student", "--teacher", model_dir, "--out", student,
-                      "--decoder_layers", "2"])
+            student = student_32_2(model_dir)
             tok_dir, test_dir, lec_dir = (os.path.join(tmp, k) for k in ("tok", "test", "lec"))
             for d in (tok_dir, test_dir, lec_dir):
                 os.makedirs(d)
@@ -2045,14 +2188,15 @@ def phase_prefilter(torch, entries: dict, results: dict):
                 log(f"    {k['ms_per_step']:8.4f} ms/step {k['calls_per_step']:6.1f}/step  "
                     f"{k['name'][:90]}")
 
-        # card vs CPU at the fp32 policy, 4 segments, the whole budget
-        agree_cfg = PF.PrefilterConfig(batch_size=AGREE_BATCH, max_decode_len=PREFILTER_BUDGET)
-        paths = segs.absolute_paths()[:AGREE_BATCH]
+        # card vs CPU at the fp32 policy, PREFILTER_AGREE segments, the whole budget
+        agree_cfg = PF.PrefilterConfig(batch_size=PREFILTER_AGREE,
+                                       max_decode_len=PREFILTER_BUDGET)
+        paths = segs.absolute_paths()[:PREFILTER_AGREE]
         rows = {dev: np.stack([r for _, r, _ in PF.validator_decode(
             params, vcfg, tok, paths, agree_cfg, DtypePolicy.fp32(), device=dev)])
             for dev in ("cuda", "cpu")}
         agreement = float((rows["cuda"] == rows["cpu"]).mean())
-        log(f"[prefilter] validator card vs CPU at fp32 ({AGREE_BATCH} segments, "
+        log(f"[prefilter] validator card vs CPU at fp32 ({PREFILTER_AGREE} segments, "
             f"{PREFILTER_BUDGET - 3} tokens): token agreement {agreement:.4f}")
         if agreement < 0.98:
             raise AssertionError(f"validator card-vs-CPU token agreement {agreement:.4f} < 0.98")
@@ -2220,11 +2364,7 @@ def phase_train(torch, entries: dict, results: dict, model_dir: str):
     none = {k: 0 for k in kernel_counters()}
     with tempfile.TemporaryDirectory() as tmp:
         manifest, tok_dir = _segment_corpus(tmp, 2 * LARGE_V2_BATCH)
-        student_dir = os.path.join(tmp, "student-32-2")
-        t0 = time.perf_counter()
-        cli.main(["init-student", "--teacher", model_dir, "--out", student_dir,
-                  "--decoder_layers", "2"])
-        log(f"[train] init-student 32-2 in {time.perf_counter() - t0:.1f} s")
+        student_dir = student_32_2(model_dir)
         # configs/distill_32_2.args semantics; one warmup step (lr 0), then
         # the shipped lr, so the loss of a repeated batch must fall
         distill = ["distill", "--manifest", manifest, "--teacher", model_dir,
@@ -2260,12 +2400,12 @@ def phase_train(torch, entries: dict, results: dict, model_dir: str):
 
 
 # the distributed phase (within 120 s): cli label --distributed as 2 ranks
-# sharing the card on 4 FLAC lectures of 60 s (64 tokens), cli prefilter
-# --distributed as 2 ranks on the segments of 2 lectures of 260 s, and cli
+# sharing the card on 2 FLAC lectures of 60 s (64 tokens), cli prefilter
+# --distributed as 2 ranks on the segments of 1 lecture of 260 s, and cli
 # distill --distributed at world size 1 (NCCL), 3 steps at batch 8 with a
 # generation eval over one batch
-DIST_RANKS, DIST_FILES, DIST_SECONDS, DIST_TOKENS = 2, 4, 60.0, 64
-DIST_LECTURES, DIST_STEPS, DIST_BATCH = 2, 3, 8
+DIST_RANKS, DIST_FILES, DIST_SECONDS, DIST_TOKENS = 2, 2, 60.0, 64
+DIST_LECTURES, DIST_STEPS, DIST_BATCH = 1, 3, 8
 RANK_TIMEOUT_S = 300
 
 
@@ -2299,11 +2439,12 @@ def rank_main(argv) -> int:
     return 0
 
 
-def start_ranks(argv, world: int) -> list:
+def start_ranks(argv, world: int, entry: str = "_rank") -> list:
     """``argv`` as ``world`` ranks of one run, each a process of its own on
-    card 0, started together; ``finish_ranks`` waits for them."""
+    card 0 (``chip_smoke.py <entry> <argv>``), started together;
+    ``finish_ranks`` waits for them."""
     port = _free_port()
-    return [subprocess.Popen([sys.executable, os.path.abspath(__file__), "_rank", *argv],
+    return [subprocess.Popen([sys.executable, os.path.abspath(__file__), entry, *argv],
                              env=dict(os.environ, **rank_env(r, world, port)),
                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             for r in range(world)]
@@ -2480,9 +2621,7 @@ def phase_distributed(torch, entries: dict, results: dict, model_dir: str):
         evals = os.path.join(corpus, "eval.tsv")
         write_manifest(evals, Manifest(root=os.path.join(corpus, "segments"),
                                        paths=["seg.wav"] * DIST_BATCH))
-        student, student_layers = os.path.join(tmp, "student-32-2"), 2
-        cli.main(["init-student", "--teacher", model_dir, "--out", student,
-                  "--decoder_layers", str(student_layers)])
+        student, student_layers = student_32_2(model_dir), 2
         distill = ["distill", "--manifest", train, "--teacher", model_dir, "--student",
                    student, "--warmup_steps", "1", "--language", "zh", "--tokenizer_dir",
                    tok_dir, "--max_steps", str(DIST_STEPS), "--batch_size", str(DIST_BATCH),
@@ -2554,6 +2693,236 @@ def phase_distributed(torch, entries: dict, results: dict, model_dir: str):
     phase_s = time.perf_counter() - t_phase
     log(f"[distributed] phase wall {phase_s:.1f} s")
     results["distributed"] = dict(out, phase_seconds=phase_s)
+
+
+
+
+def tp_jobs(torch, spec: dict, model_parallel: int, jobs) -> dict:
+    """The tensor_parallel phase's ``jobs`` through the port's API on cuda:0
+    at the fp32 policy, ``model_parallel`` ranks to a model group (1: this
+    process alone): "distill", ``run_distillation`` of the 32-2 student
+    from the large-v2 teacher (``TP_STEPS`` steps at batch ``TP_BATCH``,
+    an eval batch and ``gen_eval_batches`` 1); "finetune",
+    ``run_finetuning`` of the student (encoder trainable,
+    ``TP_FINETUNE_STEPS`` steps); "decode", greedy (fp8 cross K/V) and
+    beam-5 decoding of ``TP_UTTS`` utterances with the teacher,
+    ``TP_TOKENS`` tokens. Per job: its launch counters (zeroed just before,
+    read just after), wall, peak device memory and result."""
+    from taiwan_whisper_tpu_torch import DtypePolicy
+    from taiwan_whisper_tpu_torch.decode.beam import beam_decode
+    from taiwan_whisper_tpu_torch.decode.greedy import greedy_decode
+    from taiwan_whisper_tpu_torch.decode.rules import DecodeRules
+    from taiwan_whisper_tpu_torch.models import whisper as M
+    from taiwan_whisper_tpu_torch.models.io import load_model
+    from taiwan_whisper_tpu_torch.models.params import prepare_params
+    from taiwan_whisper_tpu_torch.ops import mel_kernel
+    from taiwan_whisper_tpu_torch.parallel import mesh, specs
+    from taiwan_whisper_tpu_torch.pipeline.dataset import TrainPrepConfig
+    from taiwan_whisper_tpu_torch.pipeline.distill_driver import (DistillRunConfig,
+                                                                  run_distillation,
+                                                                  run_finetuning)
+    from taiwan_whisper_tpu_torch.text.tokenizer import WhisperTokenizer
+    from taiwan_whisper_tpu_torch.train.state import OptimConfig
+
+    fp32, dev = DtypePolicy.fp32(), "cuda:0"
+    out = os.path.join(spec["out"], f"m{model_parallel}")
+    common = dict(prep_cfg=TrainPrepConfig(language="zh"), tokenizer_dir=spec["tok"],
+                  policy=fp32, device=dev)
+    res = {}
+
+    def job(name, fn):
+        if name not in jobs:
+            return
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counters()
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        res[name] = dict(launches=read_counters(), wall_s=time.perf_counter() - t0,
+                         peak_bytes=torch.cuda.max_memory_allocated(), **got)
+
+    job("finetune", lambda: dict(final=run_finetuning(
+        spec["train"], spec["student"], os.path.join(out, "finetune"), freeze_encoder=False,
+        run_cfg=DistillRunConfig(max_steps=TP_FINETUNE_STEPS, batch_size=TP_BATCH,
+                                 model_parallel=model_parallel, logging_steps=1,
+                                 mix_lang_embeddings=False),
+        opt_cfg=OptimConfig(learning_rate=1e-4, warmup_steps=1, total_steps=TP_FINETUNE_STEPS),
+        **common)))
+    job("distill", lambda: dict(final=run_distillation(
+        spec["train"], spec["teacher"], os.path.join(out, "distill"),
+        student_dir=spec["student"],
+        run_cfg=DistillRunConfig(max_steps=TP_STEPS, batch_size=TP_BATCH,
+                                 model_parallel=model_parallel, logging_steps=1,
+                                 eval_steps=TP_STEPS, save_steps=TP_STEPS, gen_eval_batches=1),
+        opt_cfg=OptimConfig(learning_rate=1e-4, warmup_steps=1, total_steps=TP_STEPS),
+        eval_manifest_path=spec["eval"], **common)))
+
+    def decode():
+        params, cfg = load_model(spec["teacher"])
+        if model_parallel > 1:
+            mesh.make_mesh(model_parallel)
+            params = specs.shard_params(params, mesh.model_rank(), model_parallel, cfg)
+        params = prepare_params(params, fp32, dev)
+        tok = WhisperTokenizer()
+        rules = DecodeRules.from_special(tok.special, timestamps=True)
+        sot = tok.sot_sequence("zh", "transcribe", timestamps=True)
+        prefix = torch.tensor([sot] * TP_UTTS, dtype=torch.int32)
+        audio = torch.from_numpy(np.load(spec["audio"])).to(dev)
+        with torch.inference_mode():
+            enc = M.encode(params, mel_kernel.log_mel(audio, cfg.num_mel_bins), cfg, fp32)
+        greedy = greedy_decode(params, enc, prefix, cfg, rules, fp32,
+                               max_len=len(sot) + TP_TOKENS, quantize_cross_kv="fp8",
+                               device=dev)
+        beam = beam_decode(params, enc, prefix, cfg, rules, fp32, num_beams=BEAMS,
+                           max_len=len(sot) + TP_TOKENS, device=dev)
+        return dict(greedy=greedy.tokens[:, len(sot):].tolist(),
+                    beam=beam.all_tokens[:, :, len(sot):].tolist())
+
+    job("decode", decode)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def tp_rank_main(argv) -> int:
+    """One rank of the tensor_parallel phase (``chip_smoke.py _tp_rank SPEC
+    JOB...``): joins the run over gloo itself (NCCL refuses two ranks on one
+    card), then runs ``tp_jobs`` at ``--model_parallel`` ``TP_RANKS``;
+    prints ``RANK_RESULT {"launches": ..., "result": ...}``."""
+    import torch
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", init_method="env://", rank=int(os.environ["RANK"]),
+                            world_size=int(os.environ["WORLD_SIZE"]))
+    try:
+        res = tp_jobs(torch, json.loads(argv[0]), TP_RANKS, argv[1:])
+    finally:
+        dist.destroy_process_group()
+    print("RANK_RESULT " + json.dumps({"launches": {k: r.pop("launches") for k, r in res.items()},
+                                       "result": res}), flush=True)
+    return 0
+
+
+def phase_tensor_parallel(torch, entries: dict, results: dict, model_dir: str):
+    """Tensor parallel at full large-v2 width: ``tp_jobs`` as sets of
+    ``TP_RANKS`` ranks sharing the card at ``--model_parallel``
+    ``TP_RANKS``, one set a group of jobs (``TP_RANK_SETS``; each rank
+    joins over gloo, which stages the card's tensors through the host:
+    correctness, not a speed; the weights split Megatron-style, so every
+    attention kernel runs on 10 of the 20 heads), the sets at once and
+    beside the same jobs in this process. Held: distill's and finetune's logged losses within 1e-4
+    relative and their ``hf_export`` tensors within 1e-4 (the CPU test's
+    tolerance) of the one-process run's; the greedy tokens and all beam
+    hypotheses' tokens of each rank agree on at least 0.98 of positions
+    with the one-process decode. Each rank's counters must show the kernels
+    of each job: mel and encoder attention in all, the backward in
+    finetune, cross and self in distill (its generation eval) and
+    decode."""
+    from taiwan_whisper_tpu_torch.audio.manifest import Manifest, write_manifest
+    from taiwan_whisper_tpu_torch.audio.mel import N_SAMPLES
+    from taiwan_whisper_tpu_torch.models.config import resolve_device
+    from taiwan_whisper_tpu_torch.tools.synth_audio import synth_speech
+
+    t_phase = time.perf_counter()
+    resolve_device("cuda")  # TF32 off for the fp32 policy
+    gc.collect()
+    torch.cuda.empty_cache()  # the earlier phases' cached blocks, for the ranks
+    with tempfile.TemporaryDirectory() as tmp:
+        corpus = os.path.join(tmp, "corpus")
+        os.makedirs(corpus)
+        train, tok_dir = _segment_corpus(corpus, 4 * TP_BATCH)
+        evals = os.path.join(corpus, "eval.tsv")
+        write_manifest(evals, Manifest(root=os.path.join(corpus, "segments"),
+                                       paths=["seg.wav"] * TP_BATCH))
+        student = student_32_2(model_dir)
+        rng = np.random.RandomState(5)
+        audio = np.zeros((TP_UTTS, N_SAMPLES), np.float32)
+        for i in range(TP_UTTS):
+            speech = synth_speech(rng, 8.0 + 6.0 * i)
+            audio[i, :len(speech)] = speech
+        np.save(os.path.join(tmp, "audio.npy"), audio)
+        spec = dict(train=train, eval=evals, tok=tok_dir, teacher=model_dir, student=student,
+                    audio=os.path.join(tmp, "audio.npy"), out=os.path.join(tmp, "runs"))
+        t0 = time.perf_counter()
+        sets = [start_ranks([json.dumps(spec), *jobs], TP_RANKS, entry="_tp_rank")
+                for jobs in TP_RANK_SETS]
+        try:
+            one = tp_jobs(torch, spec, 1, ("finetune", "distill", "decode"))
+        except BaseException:
+            for procs in sets:
+                stop_ranks(procs)
+            raise
+        one_wall = time.perf_counter() - t0
+        # each rank's (launches, results) over every set
+        ranks = [({}, {}) for _ in range(TP_RANKS)]
+        for i, procs in enumerate(sets):
+            for r, (launches, res) in enumerate(finish_ranks(procs, f"tensor_parallel_{i}")):
+                ranks[r][0].update(launches)
+                ranks[r][1].update(res)
+        wall = time.perf_counter() - t0
+        log(f"[tensor_parallel] set-up {t0 - t_phase:.1f} s; from the ranks' start: this "
+            f"process's jobs done at {one_wall:.1f} s, every rank at {wall:.1f} s")
+
+        def losses(m, name):
+            with open(os.path.join(spec["out"], f"m{m}", name, "metrics.jsonl"),
+                      encoding="utf-8") as f:
+                return [r["train/loss"] for r in map(json.loads, f) if "train/loss" in r]
+
+        out = dict(ranks_and_one_process_wall_s=wall)
+        for name, steps in (("distill", TP_STEPS), ("finetune", TP_FINETUNE_STEPS)):
+            a, b = losses(1, name), losses(TP_RANKS, name)
+            rel = max(abs(x - y) / abs(x) for x, y in zip(a, b)) if len(a) == len(b) else None
+            shapes, err = exports_max_abs(
+                *(os.path.join(spec["out"], f"m{m}", name, "hf_export", "model.safetensors")
+                  for m in (1, TP_RANKS)))
+            log(f"[tensor_parallel] {name}: losses one process {a}, {TP_RANKS} ranks {b}: max "
+                f"rel diff {rel} (tol 1e-4); hf_export tensors of full shapes "
+                f"{shapes}, max abs diff {err} (tol 1e-4); walls one process "
+                f"{one[name]['wall_s']:.1f} s, ranks "
+                f"{[round(r[name]['wall_s'], 1) for _, r in ranks]} s; peak device memory "
+                f"one process {one[name]['peak_bytes'] / 1e9:.2f} GB, ranks "
+                f"{[round(r[name]['peak_bytes'] / 1e9, 2) for _, r in ranks]} GB")
+            if len(a) != steps or len(b) != steps or not (rel <= 1e-4) or not shapes \
+                    or not err <= 1e-4:
+                raise AssertionError(f"tensor_parallel {name} differs from one process")
+            out[name] = dict(losses_one=a, losses_ranks=b, loss_rel_diff=rel,
+                             export_max_abs_diff=err, wall_one_s=one[name]["wall_s"],
+                             wall_ranks_s=[r[name]["wall_s"] for _, r in ranks],
+                             peak_one_bytes=one[name]["peak_bytes"],
+                             peak_ranks_bytes=[r[name]["peak_bytes"] for _, r in ranks])
+        agreements = {}
+        for r, (_, res) in enumerate(ranks):
+            for mode in ("greedy", "beam"):
+                agreements[f"rank{r} {mode}"] = first_mismatch(
+                    np.asarray(res["decode"][mode]), np.asarray(one["decode"][mode]))
+        log(f"[tensor_parallel] decode of {TP_UTTS} utterances, {TP_TOKENS} tokens, split over "
+            f"{TP_RANKS} ranks against one process (greedy with fp8 cross K/V, beam "
+            f"{BEAMS}: all hypotheses): {agreements}; walls one process "
+            f"{one['decode']['wall_s']:.1f} s, ranks "
+            f"{[round(r['decode']['wall_s'], 1) for _, r in ranks]} s")
+        if any(a < 0.98 for a, _ in agreements.values()):
+            raise AssertionError(f"tensor_parallel decode agreement below 0.98: {agreements}")
+        out["decode"] = {k: dict(agreement=a, first_mismatch=f)
+                         for k, (a, f) in agreements.items()}
+        want = {"distill": ("mel", "encoder_attention", "cross_decode_attention",
+                            "self_decode_attention"),
+                "finetune": ("mel", "encoder_attention", "encoder_attention_bwd"),
+                "decode": ("mel", "encoder_attention", "cross_decode_attention",
+                           "self_decode_attention")}
+        for r, (launches, _) in enumerate(ranks):
+            for name, counts in launches.items():
+                log(f"[tensor_parallel] rank {r} {name} launches {json.dumps(counts)}")
+                if not all(counts[k] > 0 for k in want[name]):
+                    raise AssertionError(f"tensor_parallel rank {r} {name}: a kernel of the "
+                                         f"path was not launched: {counts}")
+                add_launches(entries, results, f"tensor_parallel_rank{r}_{name}", counts)
+        for name, r in one.items():
+            add_launches(entries, results, f"tensor_parallel_one_process_{name}", r["launches"])
+    phase_s = time.perf_counter() - t_phase
+    log(f"[tensor_parallel] phase wall {phase_s:.1f} s")
+    results["tensor_parallel"] = dict(out, phase_seconds=phase_s)
 
 
 def _pair_vocab(tok_dir: str):
@@ -2722,16 +3091,16 @@ def phase_packed(torch, entries: dict, results: dict, model_dir: str):
         log(f"[packed] CSV: header + {len(rows) - 1} rows of 4 columns; first transcript "
             f"{texts[0][:80]!r}")
 
-        # card vs CPU: base at the fp32 policy, 4 packs, the whole budget
+        # card vs CPU: base at the fp32 policy, PACK_AGREE packs, the whole budget
         bcfg = get_config("base")
         bparams = init_params(bcfg, seed=0, device="cpu", dtype=torch.float32)
-        sub = packs[:AGREE_BATCH]
+        sub = packs[:PACK_AGREE]
         cols = {}
         for dev in ("cuda", "cpu"):
             path = os.path.join(tmp, f"agree_{dev}.csv")
             t0 = time.perf_counter()
             PK.label_packed(bparams, bcfg, tok, sub, path, DtypePolicy.fp32(), language="zh",
-                            batch_size=AGREE_BATCH, device=dev)
+                            batch_size=PACK_AGREE, device=dev)
             log(f"[packed] base fp32 on {dev}: {time.perf_counter() - t0:.1f} s")
             cols[dev] = list(zip(*_read_rows(path)[1:]))
         errors = sum(edit_distance(list(c), list(g)) for c, g in zip(cols["cpu"][2],
@@ -2739,7 +3108,7 @@ def phase_packed(torch, entries: dict, results: dict, model_dir: str):
         chars = sum(len(c) for c in cols["cpu"][2])
         agreement = 1.0 - errors / max(chars, 1)
         same = [cols["cuda"][i] == cols["cpu"][i] for i in (0, 1, 3)]
-        log(f"[packed] base fp32 card vs CPU ({AGREE_BATCH} packs, {PACK_BUDGET - 3} steps): "
+        log(f"[packed] base fp32 card vs CPU ({PACK_AGREE} packs, {PACK_BUDGET - 3} steps): "
             f"id / condition_on_prev / text equal {same}; transcripts agree on "
             f"{agreement:.4f} of {chars} characters")
         if not all(same) or agreement < 0.98 or not chars:
@@ -2787,9 +3156,7 @@ def phase_sweep(torch, entries: dict, results: dict, model_dir: str):
     cfg = get_config("large-v2")
     with tempfile.TemporaryDirectory() as tmp:
         manifest, tok_dir = _segment_corpus(tmp, 2 * SWEEP_BATCH)
-        student_dir = os.path.join(tmp, "student-32-2")
-        cli.main(["init-student", "--teacher", model_dir, "--out", student_dir,
-                  "--decoder_layers", "2"])
+        student_dir = student_32_2(model_dir)
         yaml_path = os.path.join(tmp, "sweep.yaml")
         with open(yaml_path, "w", encoding="utf-8") as f:
             f.write("method: grid\nmetric:\n  goal: minimize\n  name: train/loss\n"
@@ -3135,52 +3502,54 @@ def main(argv) -> int:
         return 2
     if argv[:1] == ["_rank"]:
         return rank_main(argv[1:])
+    if argv[:1] == ["_tp_rank"]:
+        return tp_rank_main(argv[1:])
     t_start = time.perf_counter()
     phases = argv or ["kernels", "label", "label_vad", "label_beam", "longform", "speculative",
-                      "prefilter", "train", "distributed", "packed", "sweep", "train_agree",
-                      "agree"]
+                      "prefilter", "train", "distributed", "tensor_parallel", "packed", "sweep",
+                      "train_agree", "agree"]
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip()
     log(smi)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
-    phase_build()
+    walls = {}
+
+    def timed(name, fn, *args):
+        """Run one phase and log its wall."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        walls[name] = time.perf_counter() - t0
+        log(f"[smoke] phase {name}: {walls[name]:.1f} s")
+        return out
+
+    timed("build", phase_build)
     entries, checks, results, case_rows = {}, [], {}, []
     groups = [p for p in phases if p in ("mel", "layer_norm")]
     if "kernels" in phases or groups:
-        phase_kernels(torch, entries, checks, case_rows,
-                      None if "kernels" in phases else groups)
+        timed("kernels", phase_kernels, torch, entries, checks, case_rows,
+              None if "kernels" in phases else groups)
         log("checks " + json.dumps({"checks": checks}))
+    large_v2_phases = {
+        "label": phase_label, "label_vad": phase_label_vad, "label_beam": phase_label_beam,
+        "longform": phase_longform, "speculative": phase_speculative, "train": phase_train,
+        "distributed": phase_distributed, "tensor_parallel": phase_tensor_parallel,
+        "packed": phase_packed, "sweep": phase_sweep}
     with tempfile.TemporaryDirectory() as tmp:
-        model_dir = (write_large_v2(tmp, torch)
-                     if {"label", "label_vad", "label_beam", "longform", "speculative",
-                         "train", "distributed", "packed", "sweep"} & set(phases)
-                     else None)
-        if "label" in phases:
-            phase_label(torch, entries, results, model_dir)
-        if "label_vad" in phases:
-            phase_label_vad(torch, entries, results, model_dir)
-        if "label_beam" in phases:
-            phase_label_beam(torch, entries, results, model_dir)
-        if "longform" in phases:
-            phase_longform(torch, entries, results, model_dir)
-        if "speculative" in phases:
-            phase_speculative(torch, entries, results, model_dir)
-        if "prefilter" in phases:
-            phase_prefilter(torch, entries, results)
-        if "train" in phases:
-            phase_train(torch, entries, results, model_dir)
-        if "distributed" in phases:
-            phase_distributed(torch, entries, results, model_dir)
-        if "packed" in phases:
-            phase_packed(torch, entries, results, model_dir)
-        if "sweep" in phases:
-            phase_sweep(torch, entries, results, model_dir)
+        model_dir = (timed("large_v2_checkpoint", write_large_v2, tmp, torch)
+                     if set(large_v2_phases) & set(phases) else None)
+        for name in ("label", "label_vad", "label_beam", "longform", "speculative",
+                     "prefilter", "train", "distributed", "tensor_parallel", "packed", "sweep"):
+            if name == "prefilter" and name in phases:
+                timed(name, phase_prefilter, torch, entries, results)
+            elif name in phases:
+                timed(name, large_v2_phases[name], torch, entries, results, model_dir)
     if "train_agree" in phases:
-        phase_train_agree(torch, results)
+        timed("train_agree", phase_train_agree, torch, results)
     if "agree" in phases:
-        phase_agree(torch, entries, results)
+        timed("agree", phase_agree, torch, entries, results)
+    results["phase_walls_s"] = walls
     log("results " + json.dumps(results))
     log(f"[smoke] phases {' '.join(phases)}: {time.perf_counter() - t_start:.1f} s")
     # every kernel case; launches are the kernel's, all its shapes, not the

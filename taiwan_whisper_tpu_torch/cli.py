@@ -39,10 +39,19 @@ Multi-process runs: launch the same command once per process with
 Each process joins the run from the launcher's environment
 (``parallel.init_distributed``; raises when a variable is missing) and runs
 on ``cuda:<LOCAL_RANK>`` unless ``--device`` names another. label and
-prefilter shard the manifest by rank, distill and finetune train data
-parallel over the ranks (``--batch_size`` is the global batch), evaluate
-and transcribe shard nothing. ``--model_parallel > 1`` (tensor parallel)
-raises NotImplementedError naming its ROADMAP item (Queue A 6).
+prefilter shard the manifest by rank, evaluate and transcribe shard
+nothing. distill and finetune lay the ranks out as a ``(data, model)``
+grid with ``--model_parallel M`` consecutive ranks to a model group
+(``parallel.mesh.make_mesh``; the world must divide by M, and heads,
+``d_model`` and ``ffn_dim`` too): each model group holds the weights split
+Megatron-style over its ranks (tensor parallel, ``parallel/specs.py``;
+the model's all-reduces run over the model group) and trains on its
+slice of the rows of the global ``--batch_size``, the gradients, token
+count and metrics summed over the data group. M = 1, the default, is
+plain data parallel over every rank.
+
+    torchrun --nproc_per_node 4 -m taiwan_whisper_tpu_torch.cli distill ... \\
+        --distributed --model_parallel 2
 """
 
 from __future__ import annotations

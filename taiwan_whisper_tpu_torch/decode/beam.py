@@ -111,8 +111,8 @@ def beam_decode(params, enc_out: torch.Tensor, prefix: torch.Tensor, config: Whi
 
     quantize, int8_dots = cross_kv_mode(quantize_cross_kv)
     cross_kv = M.precompute_cross_kv(params, enc_out, config, policy, quantize=quantize)
-    cache = M.init_cache(config, b * k, max_len, dtype=policy.compute_dtype, device=dev)
-    spare = M.init_cache(config, b * k, max_len, dtype=policy.compute_dtype, device=dev)
+    cache = M.init_cache(params, config, b * k, max_len, dtype=policy.compute_dtype, device=dev)
+    spare = M.init_cache(params, config, b * k, max_len, dtype=policy.compute_dtype, device=dev)
     prefix_rep = prefix.repeat_interleave(k, dim=0)
     logits, sot_logits = M.prefill(params, cross_kv, cache, prefix_rep, config, policy,
                                    aux_index=sot_index, beams=k, int8_dots=int8_dots)

@@ -80,7 +80,7 @@ def greedy_decode(params, enc_out: torch.Tensor, prefix: torch.Tensor,
 
     quantize, int8_dots = cross_kv_mode(quantize_cross_kv)
     cross_kv = M.precompute_cross_kv(params, enc_out, config, policy, quantize=quantize)
-    cache = M.init_cache(config, b, max_len, dtype=policy.compute_dtype, device=dev)
+    cache = M.init_cache(params, config, b, max_len, dtype=policy.compute_dtype, device=dev)
     logits, sot_logits = M.prefill(params, cross_kv, cache, prefix, config, policy,
                                    valid_from=valid_from, aux_index=sot_index,
                                    int8_dots=int8_dots)

@@ -62,8 +62,8 @@ def speculative_decode(teacher_params, teacher_config: WhisperConfig, student_pa
 
     t_cross = M.precompute_cross_kv(teacher_params, teacher_enc, teacher_config, policy)
     s_cross = M.precompute_cross_kv(student_params, student_enc, student_config, policy)
-    t_cache = M.init_cache(teacher_config, 1, max_len, dtype=dtype, device=dev)
-    s_cache = M.init_cache(student_config, 1, max_len, dtype=dtype, device=dev)
+    t_cache = M.init_cache(teacher_params, teacher_config, 1, max_len, dtype=dtype, device=dev)
+    s_cache = M.init_cache(student_params, student_config, 1, max_len, dtype=dtype, device=dev)
     # the teacher's last prompt position predicts position p_len
     t_logits, _ = M.prefill(teacher_params, t_cross, t_cache, prefix, teacher_config, policy)
     M.prefill(student_params, s_cross, s_cache, prefix, student_config, policy)

@@ -29,6 +29,22 @@ Differences from the JAX package, by design:
   no int4 dtype), and ``QuantCrossKV.length`` carries the logical length;
 * ``extend`` writes its P tokens' K/V into the cache in place, as the
   other decoder entry points do.
+
+Tensor parallel (``parallel/specs.py``): every function takes one model
+rank's shard of the weights as it takes the full tree. A layer whose q
+projection holds fewer rows than the model width is split, and runs as
+Megatron's pair of collectives over the model group of
+``parallel/mesh.py``: the input of the column-split projections (the LN
+output feeding q/k/v or ``fc1``, and the encoder output feeding every
+cross k/v, once each) goes through ``_ToModelGroup`` (identity; the
+backward sums the gradient over the group), and the output of a row-split
+``out``/``fc2`` through ``_FromModelGroup`` (the sum over the group; the
+replicated bias added after it, in ``_row_dense``). Head counts come from the weights' rows,
+so the attention kernels and the caches run on the rank's local heads,
+and the logits (``embed_tokens`` replicated) come out whole on every rank.
+The JAX model turns its Pallas decode kernels off under a model axis
+(``pallas_call`` does not auto-partition); here each rank calls the CUDA
+decode kernels on its whole local heads.
 """
 
 from __future__ import annotations
@@ -43,6 +59,7 @@ from torch.utils.checkpoint import checkpoint
 from ..ops.attention import attention_plain, encoder_attention
 from ..ops.decode_attention import (cross_attention, cross_attention_int8_dots, pack_int4,
                                     self_attention, time_minor_zeros)
+from ..parallel import mesh
 from .config import DtypePolicy, WhisperConfig
 
 Params = Dict[str, Any]
@@ -68,9 +85,23 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="none")
 
 
-def _split_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
+def _split_heads(x: torch.Tensor, head_dim: int) -> torch.Tensor:
+    """[B, S, H * Dh] -> [B, S, H, Dh]: H the heads the projection holds (a
+    model rank's local heads under tensor parallel)."""
     b, s, d = x.shape
-    return x.view(b, s, n_heads, d // n_heads)
+    return x.view(b, s, d // head_dim, head_dim)
+
+
+def _head_dim(config: WhisperConfig, decoder: bool = False) -> int:
+    heads = config.decoder_attention_heads if decoder else config.encoder_attention_heads
+    return config.d_model // heads
+
+
+def _local_heads(params: Params, config: WhisperConfig) -> int:
+    """The decoder heads ``params`` hold: all of them, or a model rank's
+    share of a tensor-parallel shard (the self cache's head axis)."""
+    rows = params["decoder"]["layers"][0]["self_attn"]["q"]["weight"].shape[0]
+    return rows // _head_dim(config, decoder=True)
 
 
 def _merge_heads(x: torch.Tensor) -> torch.Tensor:
@@ -123,6 +154,60 @@ def _conv1d(p: Params, x: torch.Tensor, stride: int) -> torch.Tensor:
     return y.transpose(1, 2)
 
 
+class _ToModelGroup(torch.autograd.Function):
+    """Identity forward; the backward sums the gradient over the model
+    group (Megatron's f, at the input of column-split projections)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return mesh.all_reduce_sum_(g.clone(memory_format=torch.contiguous_format), "model")
+
+
+class _FromModelGroup(torch.autograd.Function):
+    """The sum over the model group forward, in place; identity backward
+    (Megatron's g, at the output of row-split projections)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.mark_dirty(x)
+        return mesh.all_reduce_sum_(x, "model")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+def _is_split(lp: Params, d_model: int) -> bool:
+    """Whether layer ``lp`` holds a model rank's shard: its self-attention
+    q projection has fewer rows than the model width. Raises on a shard
+    outside a model group, whose sums would be skipped."""
+    split = lp["self_attn"]["q"]["weight"].shape[0] != d_model
+    if split and mesh.model_size() == 1:
+        raise RuntimeError("tensor-parallel weights need parallel.mesh.make_mesh(model=M)")
+    return split
+
+
+def _to_model_group(x: torch.Tensor, split: bool) -> torch.Tensor:
+    return _ToModelGroup.apply(x) if split else x
+
+
+def _row_dense(p: Params, x: torch.Tensor, split: bool) -> torch.Tensor:
+    """``_dense`` of a row-split projection (out, fc2): on a shard, the
+    local product summed over the model group, then the bias."""
+    if not split:
+        return _dense(p, x)
+    y = _FromModelGroup.apply(F.linear(x, p["weight"].to(x.dtype)))
+    return y + p["bias"].to(x.dtype)
+
+
+def _mlp(lp: Params, h: torch.Tensor, split: bool) -> torch.Tensor:
+    return _row_dense(lp["fc2"], _gelu(_dense(lp["fc1"], _to_model_group(h, split))), split)
+
+
 def _run_layer(fn, lp: Params, x: torch.Tensor, *args, remat: bool) -> torch.Tensor:
     """``fn(lp, x, *args)``, checkpointed when ``remat`` and autograd is
     recording (``jax.checkpoint`` on the JAX package's scanned body)."""
@@ -135,15 +220,15 @@ def _run_layer(fn, lp: Params, x: torch.Tensor, *args, remat: bool) -> torch.Ten
 # encoder
 # ---------------------------------------------------------------------------
 
-def _encoder_layer(lp: Params, x: torch.Tensor, n_heads: int) -> torch.Tensor:
-    h = _layer_norm(lp["self_attn_ln"], x)
+def _encoder_layer(lp: Params, x: torch.Tensor, head_dim: int) -> torch.Tensor:
+    split = _is_split(lp, x.shape[-1])
+    h = _to_model_group(_layer_norm(lp["self_attn_ln"], x), split)
     a = lp["self_attn"]
-    q = _split_heads(_dense(a["q"], h), n_heads)
-    k = _split_heads(_dense(a["k"], h), n_heads)
-    v = _split_heads(_dense(a["v"], h), n_heads)
-    x = x + _dense(a["out"], _merge_heads(encoder_attention(q, k, v)))
-    h = _layer_norm(lp["final_ln"], x)
-    return x + _dense(lp["fc2"], _gelu(_dense(lp["fc1"], h)))
+    q = _split_heads(_dense(a["q"], h), head_dim)
+    k = _split_heads(_dense(a["k"], h), head_dim)
+    v = _split_heads(_dense(a["v"], h), head_dim)
+    x = x + _row_dense(a["out"], _merge_heads(encoder_attention(q, k, v)), split)
+    return x + _mlp(lp, _layer_norm(lp["final_ln"], x), split)
 
 
 def encode(params: Params, mel: torch.Tensor, config: WhisperConfig,
@@ -158,26 +243,28 @@ def encode(params: Params, mel: torch.Tensor, config: WhisperConfig,
     x = _gelu(_conv1d(p["conv2"], x, stride=2))
     x = x + p["embed_positions"].detach().to(dtype)
     for lp in p["layers"]:
-        x = _run_layer(_encoder_layer, lp, x, config.encoder_attention_heads, remat=remat)
+        x = _run_layer(_encoder_layer, lp, x, _head_dim(config), remat=remat)
     return _layer_norm(p["ln_post"], x).to(dtype)
 
 
 def _decoder_train_layer(lp: Params, x: torch.Tensor, enc: torch.Tensor,
-                         causal: torch.Tensor, n_heads: int) -> torch.Tensor:
-    h = _layer_norm(lp["self_attn_ln"], x)
+                         causal: torch.Tensor, head_dim: int) -> torch.Tensor:
+    """One decoder layer over the whole sequence; ``enc`` has been through
+    ``_to_model_group`` already when the layer is split."""
+    split = _is_split(lp, x.shape[-1])
+    h = _to_model_group(_layer_norm(lp["self_attn_ln"], x), split)
     a = lp["self_attn"]
-    q = _split_heads(_dense(a["q"], h), n_heads)
-    k = _split_heads(_dense(a["k"], h), n_heads)
-    v = _split_heads(_dense(a["v"], h), n_heads)
-    x = x + _dense(a["out"], _merge_heads(attention_plain(q, k, v, causal)))
-    h = _layer_norm(lp["cross_attn_ln"], x)
+    q = _split_heads(_dense(a["q"], h), head_dim)
+    k = _split_heads(_dense(a["k"], h), head_dim)
+    v = _split_heads(_dense(a["v"], h), head_dim)
+    x = x + _row_dense(a["out"], _merge_heads(attention_plain(q, k, v, causal)), split)
+    h = _to_model_group(_layer_norm(lp["cross_attn_ln"], x), split)
     c = lp["cross_attn"]
-    q = _split_heads(_dense(c["q"], h), n_heads)
-    k = _split_heads(_dense(c["k"], enc), n_heads)
-    v = _split_heads(_dense(c["v"], enc), n_heads)
-    x = x + _dense(c["out"], _merge_heads(attention_plain(q, k, v)))
-    h = _layer_norm(lp["final_ln"], x)
-    return x + _dense(lp["fc2"], _gelu(_dense(lp["fc1"], h)))
+    q = _split_heads(_dense(c["q"], h), head_dim)
+    k = _split_heads(_dense(c["k"], enc), head_dim)
+    v = _split_heads(_dense(c["v"], enc), head_dim)
+    x = x + _row_dense(c["out"], _merge_heads(attention_plain(q, k, v)), split)
+    return x + _mlp(lp, _layer_norm(lp["final_ln"], x), split)
 
 
 def decode_train(params: Params, enc_out: torch.Tensor, tokens: torch.Tensor,
@@ -197,10 +284,13 @@ def decode_train(params: Params, enc_out: torch.Tensor, tokens: torch.Tensor,
     if attention_mask is not None:
         causal = causal & attention_mask[:, None, None, :]
     enc = enc_out.to(dtype)
+    if p["layers"]:
+        # one backward sum for every layer's cross k/v of a split decoder
+        enc = _to_model_group(enc, _is_split(p["layers"][0], config.d_model))
     hidden = []
     for lp in p["layers"]:
         x = _run_layer(_decoder_train_layer, lp, x, enc, causal,
-                       config.decoder_attention_heads, remat=remat)
+                       _head_dim(config, decoder=True), remat=remat)
         if output_hidden_states:
             hidden.append(x)
     logits = _lm_head(p["embed_tokens"], _layer_norm(p["ln_post"], x))
@@ -232,11 +322,13 @@ class KVCache:
         return self.k.shape[-1]
 
 
-def init_cache(config: WhisperConfig, batch: int, max_len: Optional[int] = None,
-               dtype=torch.bfloat16, device="cpu") -> KVCache:
+def init_cache(params: Params, config: WhisperConfig, batch: int,
+               max_len: Optional[int] = None, dtype=torch.bfloat16, device="cpu") -> KVCache:
+    """An empty cache for the decoder heads ``params`` hold: all of them,
+    or under tensor parallel a model rank's share."""
     s = max_len or config.max_target_positions
-    shape = (config.decoder_layers, batch, config.decoder_attention_heads,
-             config.head_dim, s)
+    shape = (config.decoder_layers, batch, _local_heads(params, config),
+             _head_dim(config, decoder=True), s)
     return KVCache(k=time_minor_zeros(shape, dtype, device),
                    v=time_minor_zeros(shape, dtype, device))
 
@@ -286,7 +378,7 @@ def precompute_cross_kv(params: Params, enc_out: torch.Tensor, config: WhisperCo
     "fp8"), written layer by layer so the fp32 transient stays one layer's
     size."""
     dtype = policy.compute_dtype
-    n_heads = config.decoder_attention_heads
+    head_dim = _head_dim(config, decoder=True)
     layers = params["decoder"]["layers"]
     enc = enc_out.to(dtype)
     ks = vs = None
@@ -294,8 +386,8 @@ def precompute_cross_kv(params: Params, enc_out: torch.Tensor, config: WhisperCo
     for i, lp in enumerate(layers):
         a = lp["cross_attn"]
         # [B, T, H, Dh] -> [B, H, Dh, T]
-        k = _split_heads(_dense(a["k"], enc), n_heads).permute(0, 2, 3, 1)
-        v = _split_heads(_dense(a["v"], enc), n_heads).permute(0, 2, 3, 1)
+        k = _split_heads(_dense(a["k"], enc), head_dim).permute(0, 2, 3, 1)
+        v = _split_heads(_dense(a["v"], enc), head_dim).permute(0, 2, 3, 1)
         if quantize:
             (k, k_scale), (v, v_scale) = _quantize_kv_slice(k, quantize), \
                 _quantize_kv_slice(v, quantize)
@@ -352,21 +444,22 @@ def _cross_attention(q: torch.Tensor, cross_slice, dtype, beams: int = 1,
 
 
 def _cached_self_attn(lp: Params, h: torch.Tensor, cache_k: torch.Tensor,
-                      cache_v: torch.Tensor, index: int, n_heads: int, dtype,
-                      valid_from: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      cache_v: torch.Tensor, index: int, head_dim: int, dtype,
+                      valid_from: Optional[torch.Tensor] = None,
+                      split: bool = False) -> torch.Tensor:
     """One-token self-attention against the cache [B, H, Dh, S]: the
     current token is attended to directly (cache position ``index`` stays
     masked), then its k/v are written into the cache at ``index`` in place.
     h: [B, 1, d] -> [B, 1, d]."""
     b = h.shape[0]
-    q = _dense(lp["q"], h).view(b, n_heads, -1)  # [B, H, Dh]
-    k_t = _dense(lp["k"], h).view(b, n_heads, -1).to(cache_k.dtype)
-    v_t = _dense(lp["v"], h).view(b, n_heads, -1).to(cache_v.dtype)
+    q = _dense(lp["q"], h).view(b, -1, head_dim)  # [B, H, Dh]
+    k_t = _dense(lp["k"], h).view(b, -1, head_dim).to(cache_k.dtype)
+    v_t = _dense(lp["v"], h).view(b, -1, head_dim).to(cache_v.dtype)
     qh = q * (q.shape[-1] ** -0.5)
     out = self_attention(qh, cache_k, cache_v, k_t, v_t, index, valid_from)
     cache_k[..., index] = k_t
     cache_v[..., index] = v_t
-    return _dense(lp["out"], out.to(dtype).reshape(b, 1, -1))
+    return _row_dense(lp["out"], out.to(dtype).reshape(b, 1, -1), split)
 
 
 def decode_step(params: Params, cross_kv: CrossKV, cache: KVCache,
@@ -380,20 +473,20 @@ def decode_step(params: Params, cross_kv: CrossKV, cache: KVCache,
     ``int8_dots``: the "8x8" cross attention over int8 cross K/V."""
     p = params["decoder"]
     dtype = policy.compute_dtype
-    n_heads = config.decoder_attention_heads
+    head_dim = _head_dim(config, decoder=True)
     if token.dim() == 1:
         token = token[:, None]
     x = p["embed_tokens"][token] + p["embed_positions"][index]  # [B, 1, d]
     for i, lp in enumerate(p["layers"]):
+        split = _is_split(lp, config.d_model)
         h = _layer_norm(lp["self_attn_ln"], x)
         x = x + _cached_self_attn(lp["self_attn"], h, cache.k[i], cache.v[i], index,
-                                  n_heads, dtype, valid_from)
+                                  head_dim, dtype, valid_from, split)
         h = _layer_norm(lp["cross_attn_ln"], x)
-        q = _split_heads(_dense(lp["cross_attn"]["q"], h), n_heads)
+        q = _split_heads(_dense(lp["cross_attn"]["q"], h), head_dim)
         att = _cross_attention(q, _cross_layer(cross_kv, i), dtype, beams, int8_dots)
-        x = x + _dense(lp["cross_attn"]["out"], _merge_heads(att))
-        h = _layer_norm(lp["final_ln"], x)
-        x = x + _dense(lp["fc2"], _gelu(_dense(lp["fc1"], h)))
+        x = x + _row_dense(lp["cross_attn"]["out"], _merge_heads(att), split)
+        x = x + _mlp(lp, _layer_norm(lp["final_ln"], x), split)
     x = _layer_norm(p["ln_post"], x)
     return _lm_head(p["embed_tokens"], x[:, 0])
 
@@ -411,7 +504,7 @@ def prefill(params: Params, cross_kv: CrossKV, cache: KVCache, tokens: torch.Ten
     item."""
     p = params["decoder"]
     dtype = policy.compute_dtype
-    n_heads = config.decoder_attention_heads
+    head_dim = _head_dim(config, decoder=True)
     b, pl_len = tokens.shape
     x = p["embed_tokens"][tokens] + p["embed_positions"][:pl_len]
     mask = torch.tril(torch.ones(pl_len, pl_len, dtype=torch.bool, device=tokens.device))
@@ -420,20 +513,20 @@ def prefill(params: Params, cross_kv: CrossKV, cache: KVCache, tokens: torch.Ten
         keep = torch.arange(pl_len, device=tokens.device)[None, :] >= valid_from[:, None]
         mask = mask & keep[:, None, None, :]
     for i, lp in enumerate(p["layers"]):
+        split = _is_split(lp, config.d_model)
         h = _layer_norm(lp["self_attn_ln"], x)
         a = lp["self_attn"]
-        q = _split_heads(_dense(a["q"], h), n_heads)
-        k = _split_heads(_dense(a["k"], h), n_heads)
-        v = _split_heads(_dense(a["v"], h), n_heads)
-        x = x + _dense(a["out"], _merge_heads(attention_plain(q, k, v, mask)))
+        q = _split_heads(_dense(a["q"], h), head_dim)
+        k = _split_heads(_dense(a["k"], h), head_dim)
+        v = _split_heads(_dense(a["v"], h), head_dim)
+        x = x + _row_dense(a["out"], _merge_heads(attention_plain(q, k, v, mask)), split)
         cache.k[i, ..., :pl_len] = k.permute(0, 2, 3, 1)
         cache.v[i, ..., :pl_len] = v.permute(0, 2, 3, 1)
         h = _layer_norm(lp["cross_attn_ln"], x)
-        q = _split_heads(_dense(lp["cross_attn"]["q"], h), n_heads)
+        q = _split_heads(_dense(lp["cross_attn"]["q"], h), head_dim)
         att = _cross_attention(q, _cross_layer(cross_kv, i), dtype, beams, int8_dots)
-        x = x + _dense(lp["cross_attn"]["out"], _merge_heads(att))
-        h = _layer_norm(lp["final_ln"], x)
-        x = x + _dense(lp["fc2"], _gelu(_dense(lp["fc1"], h)))
+        x = x + _row_dense(lp["cross_attn"]["out"], _merge_heads(att), split)
+        x = x + _mlp(lp, _layer_norm(lp["final_ln"], x), split)
     x = _layer_norm(p["ln_post"], x)
     both = _lm_head(p["embed_tokens"], torch.stack([x[:, -1], x[:, aux_index]], dim=1))
     return both[:, 0], both[:, 1]
@@ -452,7 +545,7 @@ def extend(params: Params, cross_kv: CrossKV, cache: KVCache, tokens: torch.Tens
     logits [B, P, vocab]."""
     p = params["decoder"]
     dtype = policy.compute_dtype
-    n_heads = config.decoder_attention_heads
+    head_dim = _head_dim(config, decoder=True)
     plen = tokens.shape[1]
     s = cache.max_len
     if not 0 <= offset <= s - plen:
@@ -463,20 +556,20 @@ def extend(params: Params, cross_kv: CrossKV, cache: KVCache, tokens: torch.Tens
     q_pos = offset + torch.arange(plen, device=tokens.device)
     mask = (key_pos[None, :] <= q_pos[:, None])[None, None]  # [1, 1, P, S]
     for i, lp in enumerate(p["layers"]):
+        split = _is_split(lp, config.d_model)
         h = _layer_norm(lp["self_attn_ln"], x)
         a = lp["self_attn"]
-        q = _split_heads(_dense(a["q"], h), n_heads)
-        k = _split_heads(_dense(a["k"], h), n_heads)
-        v = _split_heads(_dense(a["v"], h), n_heads)
+        q = _split_heads(_dense(a["q"], h), head_dim)
+        k = _split_heads(_dense(a["k"], h), head_dim)
+        v = _split_heads(_dense(a["v"], h), head_dim)
         ck, cv = cache.k[i], cache.v[i]
         ck[..., offset:offset + plen] = k.permute(0, 2, 3, 1)
         cv[..., offset:offset + plen] = v.permute(0, 2, 3, 1)
         att = attention_plain(q, ck.permute(0, 3, 1, 2), cv.permute(0, 3, 1, 2), mask)
-        x = x + _dense(a["out"], _merge_heads(att))
+        x = x + _row_dense(a["out"], _merge_heads(att), split)
         h = _layer_norm(lp["cross_attn_ln"], x)
-        q = _split_heads(_dense(lp["cross_attn"]["q"], h), n_heads)
+        q = _split_heads(_dense(lp["cross_attn"]["q"], h), head_dim)
         att = _cross_attention(q, _cross_layer(cross_kv, i), dtype, beams, int8_dots)
-        x = x + _dense(lp["cross_attn"]["out"], _merge_heads(att))
-        h = _layer_norm(lp["final_ln"], x)
-        x = x + _dense(lp["fc2"], _gelu(_dense(lp["fc1"], h)))
+        x = x + _row_dense(lp["cross_attn"]["out"], _merge_heads(att), split)
+        x = x + _mlp(lp, _layer_norm(lp["final_ln"], x), split)
     return _lm_head(p["embed_tokens"], _layer_norm(p["ln_post"], x))

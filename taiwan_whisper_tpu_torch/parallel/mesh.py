@@ -1,6 +1,5 @@
 """Multi-process runs over ``torch.distributed`` (the counterpart of the JAX
-package's ``jax.distributed.initialize()`` and parallel/mesh.py, less
-tensor parallelism).
+package's ``jax.distributed.initialize()`` and parallel/mesh.py).
 
 A run is N processes sharing one filesystem, each started by a launcher
 (``torchrun --nproc_per_node N -m taiwan_whisper_tpu_torch.cli ...
@@ -16,14 +15,26 @@ process groups:
 * a gloo group carries barriers and small host values (the preemption
   flag).
 
+``make_mesh(model)`` lays the run's ranks out as the JAX package's
+``(data, model)`` device mesh, ``model`` the minor axis: consecutive ranks
+form a model group (tensor parallel: each holds a shard of the weights,
+``parallel/specs.py``), and the ranks with the same index in their model
+groups form a data group (data parallel: each trains on its slice of the
+batch rows). ``all_reduce_sum_`` and ``all_gather`` take the group by name:
+``"world"``, ``"data"`` or ``"model"``. Until ``make_mesh`` (and with
+``model`` 1) the model group is this rank alone, its collectives are
+skipped, and the data group is the world. ``host_local_slice`` stays per
+process whatever the mesh: label and prefilter shard files by rank.
+
 Outside a run every query answers for one process: rank 0 of 1.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from datetime import timedelta
-from typing import List, Optional
+from typing import Any, List, Optional
 
 import torch
 import torch.distributed as dist
@@ -32,6 +43,21 @@ LAUNCH_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
 TIMEOUT = timedelta(minutes=30)
 
 _host_group = None  # the gloo group of the run, set by init_distributed
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """This rank's place in the ``(data, model)`` grid of ranks."""
+
+    data: int = 1  # ranks in a data group (the number of model groups)
+    model: int = 1  # ranks in a model group
+    data_rank: int = 0  # index of this rank's model group
+    model_rank: int = 0  # index of this rank within its model group
+    data_group: Any = None  # process group handles (None: the default group)
+    model_group: Any = None
+
+
+_mesh = Mesh()
 
 
 def launch_env() -> dict:
@@ -69,10 +95,73 @@ def init_distributed(device=None) -> torch.device:
 
 def shutdown():
     """Leave the run (no-op outside one)."""
-    global _host_group
+    global _host_group, _mesh
     if dist.is_initialized():
         dist.destroy_process_group()
     _host_group = None
+    _mesh = Mesh()
+
+
+def make_mesh(model: int = 1) -> Mesh:
+    """Lay the run's ranks out as a ``(data, model)`` grid of ``model``
+    ranks to a model group and the world's other factor to a data group
+    (JAX's ``make_mesh(data=-1, model=model)``), and make it this process's
+    mesh; every rank calls it, with the same argument. Rank r sits in model
+    group ``r // model`` at index ``r % model``. Raises ``ValueError`` when
+    ``model`` does not divide the world."""
+    global _mesh
+    world = world_size()
+    model = max(model, 1)
+    if world % model:
+        raise ValueError(f"{world} processes do not divide by --model_parallel {model}")
+    data = world // model
+    me = rank()
+    model_group = data_group = None
+    if model > 1:
+        # every rank creates every group, in the same order
+        for d in range(data):
+            g = dist.new_group([d * model + m for m in range(model)], timeout=TIMEOUT)
+            if me // model == d:
+                model_group = g
+        for m in range(model):
+            g = dist.new_group([d * model + m for d in range(data)], timeout=TIMEOUT)
+            if me % model == m:
+                data_group = g
+    _mesh = Mesh(data=data, model=model, data_rank=me // model, model_rank=me % model,
+                 data_group=data_group, model_group=model_group)
+    return _mesh
+
+
+def model_size() -> int:
+    return _mesh.model
+
+
+def model_rank() -> int:
+    return _mesh.model_rank
+
+
+def data_size() -> int:
+    return _mesh.data if _mesh.model > 1 else world_size()
+
+
+def data_rank() -> int:
+    return _mesh.data_rank if _mesh.model > 1 else rank()
+
+
+def _group(name: str):
+    """(group handle, skip): the named group, and whether it holds this
+    rank alone so that its collectives are no-ops."""
+    if name == "world":
+        return None, False
+    if name == "model":
+        return _mesh.model_group, _mesh.model == 1
+    if name == "data":
+        # a model size of 1 keeps the data group the world, as before
+        # make_mesh, so a world-1 run still reduces through it
+        if _mesh.model == 1:
+            return None, False
+        return _mesh.data_group, _mesh.data == 1
+    raise ValueError(f"no process group named {name!r}")
 
 
 def initialized() -> bool:
@@ -113,10 +202,24 @@ def any_rank(flag: bool) -> bool:
     return bool(t.item())
 
 
-def all_reduce_sum_(t: torch.Tensor) -> torch.Tensor:
-    """Sum ``t`` over the ranks in place, on the device group; returns it."""
-    dist.all_reduce(t, op=dist.ReduceOp.SUM)
+def all_reduce_sum_(t: torch.Tensor, group: str = "world") -> torch.Tensor:
+    """Sum ``t`` in place over the ranks of the named device group
+    (``"world"``, ``"data"`` or ``"model"``); returns it. A group of this
+    rank alone leaves ``t`` as it is."""
+    handle, alone = _group(group)
+    if not alone:
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=handle)
     return t
+
+
+def all_gather(t: torch.Tensor, group: str) -> List[torch.Tensor]:
+    """``t`` of every rank of the named device group, in rank order."""
+    handle, alone = _group(group)
+    if alone:
+        return [t]
+    out = [torch.empty_like(t) for _ in range(dist.get_world_size(handle))]
+    dist.all_gather(out, t, group=handle)
+    return out
 
 
 def host_local_slice(n_items: int, process_index: Optional[int] = None,

@@ -16,14 +16,21 @@ compute runs in the policy's dtype. Only the teacher's decoder goes to the
 device (the student's encoder serves both), and a CE-only run loads no
 teacher.
 
-In a multi-process run (``parallel.init_distributed``) the training is data
-parallel over the ranks: ``batch_size`` is the global batch, every rank
-builds the same batch stream and trains on its contiguous slice of rows,
-and the step reduces the token count, gradients and metrics
-(``train/distill.py``). Rank 0 writes checkpoints, the HF export and the
-metrics, and runs the generation eval; a signal on any rank stops every
-rank at the same step. ``model_parallel > 1`` (tensor parallel) raises
-NotImplementedError (ROADMAP Queue A 6).
+In a multi-process run (``parallel.init_distributed``) the ranks form the
+``(data, model)`` grid of ``parallel.mesh.make_mesh(model_parallel)``; a
+world that ``model_parallel`` does not divide raises before any model
+loads. ``batch_size`` is the global batch: every
+rank builds the same batch stream from the same seed, each model group
+trains on its data rank's contiguous slice of rows, and the step reduces
+the token count, gradients and metrics over the data group
+(``train/distill.py``). Under tensor parallel (``model_parallel`` > 1)
+each rank of a model group holds its shards of the student and the
+teacher's decoder (``parallel/specs.py``), cut after load. Rank 0 writes
+the metrics, the checkpoints and the HF export, both of full tensors
+gathered over its model group; the ranks of model group 0 run the
+generation eval together (its collectives need every shard), rank 0
+alone logs its tables and the other ranks wait at a named barrier. A
+signal on any rank stops every rank at the same step.
 """
 
 from __future__ import annotations
@@ -46,7 +53,7 @@ from ..models.io import load_model, save_hf_checkpoint
 from ..models.params import (init_student_from_teacher, map_params, mix_language_embeddings,
                               prepare_params)
 from ..ops import mel_kernel
-from ..parallel import mesh
+from ..parallel import mesh, specs
 from ..text.metrics import MixErrorRate
 from ..text.normalizer import BasicTextNormalizer
 from ..text.tokenizer import WhisperTokenizer
@@ -76,18 +83,20 @@ class DistillRunConfig:
     num_workers: int = 4  # audio-decode threads (0 = inline)
 
 
-def _check_supported(run_cfg: DistillRunConfig):
-    if run_cfg.model_parallel > 1:
-        raise NotImplementedError(
-            "--model_parallel > 1 (tensor parallel) waits for a later slice of the port "
-            "(ROADMAP Queue A 6)")
-    if run_cfg.batch_size % mesh.world_size():
+def _make_mesh(run_cfg: DistillRunConfig):
+    """Lay the run out as its ``(data, model)`` grid; raises when the
+    world or the global batch does not divide."""
+    mesh.make_mesh(model=run_cfg.model_parallel)
+    if run_cfg.batch_size % mesh.data_size():
         raise ValueError(f"--batch_size {run_cfg.batch_size} (the global batch) does not "
-                         f"divide over {mesh.world_size()} processes")
+                         f"divide over {mesh.data_size()} data-parallel groups")
 
 
-def _masters(params, device):
-    """fp32 copies of every leaf on ``device`` (the training masters)."""
+def _masters(params, device, config=None):
+    """fp32 copies on ``device`` of every leaf of this rank's shard of
+    ``params`` (the training masters); ``config`` checks the split."""
+    if mesh.model_size() > 1:
+        params = specs.shard_params(params, mesh.model_rank(), mesh.model_size(), config)
     return map_params(lambda _, t: t.to(device=device, dtype=torch.float32), params)
 
 
@@ -103,7 +112,7 @@ def run_distillation(train_manifest_path: str, teacher_dir: str, output_dir: str
                      policy: DtypePolicy = DtypePolicy(), device=None) -> Dict[str, float]:
     """Train a student for ``run_cfg.max_steps`` steps; returns the metrics
     of the last logged step."""
-    _check_supported(run_cfg)
+    _make_mesh(run_cfg)
     dev = resolve_device(device)
     tok = (WhisperTokenizer.from_pretrained_dir(tokenizer_dir) if tokenizer_dir
            else WhisperTokenizer())
@@ -126,11 +135,11 @@ def run_distillation(train_manifest_path: str, teacher_dir: str, output_dir: str
                                             encoder_layers=student_encoder_layers)
     if not need_teacher:
         teacher, teacher_cfg = None, student_cfg
-    student = _masters(student, dev)
+    student = _masters(student, dev, student_cfg)
     # the student's encoder serves both decoders: only the teacher's
     # decoder goes to the device
     if teacher is not None:
-        teacher = {"decoder": _masters(teacher["decoder"], dev)}
+        teacher = {"decoder": _masters(teacher["decoder"], dev, teacher_cfg)}
 
     opt_cfg = opt_cfg or OptimConfig(total_steps=run_cfg.max_steps)
     optimizer = make_optimizer(opt_cfg, mask=trainable_mask(student, dcfg.freeze_encoder))
@@ -140,8 +149,8 @@ def run_distillation(train_manifest_path: str, teacher_dir: str, output_dir: str
         max_label_length=min(prep_cfg.max_label_length, student_cfg.max_target_positions))
     train_step = make_train_step(student_cfg, teacher_cfg, dcfg, optimizer, policy)
     eval_step = make_eval_step(student_cfg, teacher_cfg, dcfg, policy)
-    per_rank = run_cfg.batch_size // mesh.world_size()
-    rows = slice(mesh.rank() * per_rank, (mesh.rank() + 1) * per_rank)
+    per_rank = run_cfg.batch_size // mesh.data_size()
+    rows = slice(mesh.data_rank() * per_rank, (mesh.data_rank() + 1) * per_rank)
 
     manifest = read_manifest(train_manifest_path)
     if not manifest.paths:
@@ -190,15 +199,19 @@ def run_distillation(train_manifest_path: str, teacher_dir: str, output_dir: str
                 totals[k] = totals.get(k, 0.0) + float(v)
         avg = {k: v / len(eval_batches) for k, v in totals.items()}
         logger.log(avg, step, prefix="eval")
-        if run_cfg.gen_eval_batches > 0 and mesh.is_main():
+        if run_cfg.gen_eval_batches > 0 and mesh.data_rank() == 0:
             mer, table = generation_eval(
                 student, student_cfg, tok, eval_batches[:run_cfg.gen_eval_batches],
                 prep_cfg.language, prep_cfg.task, run_cfg.gen_eval_max_tokens, policy, dev)
-            logger.log({"gen_mer": mer}, step, prefix="eval")
-            cols, cap = ("pred", "label", "norm_pred", "norm_label"), run_cfg.gen_eval_table_rows
-            logger.log_table("predictions", cols, table[:cap], step)
-            wrong = [r for r in table if r[2] != r[3]]
-            logger.log_table("incorrect_predictions", cols, wrong[:cap], step)
+            if mesh.is_main():
+                logger.log({"gen_mer": mer}, step, prefix="eval")
+                cols = ("pred", "label", "norm_pred", "norm_label")
+                cap = run_cfg.gen_eval_table_rows
+                logger.log_table("predictions", cols, table[:cap], step)
+                wrong = [r for r in table if r[2] != r[3]]
+                logger.log_table("incorrect_predictions", cols, wrong[:cap], step)
+        if run_cfg.gen_eval_batches > 0 and mesh.model_size() > 1:
+            mesh.barrier(f"gen_eval_done_{step}")
         if avg["loss"] < best_eval_loss:
             best_eval_loss = avg["loss"]
             ckpt.save(step, {"params": student, "opt_state": opt_state}, keep=True)
@@ -249,10 +262,10 @@ def run_distillation(train_manifest_path: str, teacher_dir: str, output_dir: str
             if step % run_cfg.eval_steps == 0 or step == run_cfg.max_steps:
                 run_eval(step)
             if step % run_cfg.save_steps == 0 or step == run_cfg.max_steps:
-                ckpt.save(step, {"params": student, "opt_state": opt_state})
+                saved = ckpt.save(step, {"params": student, "opt_state": opt_state})
                 if mesh.is_main():
-                    save_hf_checkpoint(os.path.join(output_dir, "hf_export"), student,
-                                       student_cfg)
+                    save_hf_checkpoint(os.path.join(output_dir, "hf_export"),
+                                       saved["params"], student_cfg)
     finally:
         for s, h in old_handlers.items():
             signal.signal(s, h)

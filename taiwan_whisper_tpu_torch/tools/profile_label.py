@@ -273,8 +273,8 @@ def main(argv=None):
             enc, t_enc = _timed(lambda: M.encode(params, mel, cfg, pol))
             kv, t_kv = _timed(lambda: M.precompute_cross_kv(params, enc, cfg, pol,
                                                             quantize=bits))
-            cache = M.init_cache(cfg, args.batch * k, p_len + budget, dtype=pol.compute_dtype,
-                                 device=dev)
+            cache = M.init_cache(params, cfg, args.batch * k, p_len + budget,
+                                 dtype=pol.compute_dtype, device=dev)
             _, t_pre = _timed(lambda: M.prefill(params, kv, cache,
                                                 prefix.repeat_interleave(k, dim=0), cfg, pol,
                                                 aux_index=len(prompt), beams=k,
@@ -300,7 +300,8 @@ def main(argv=None):
     with torch.inference_mode():
         enc = M.encode(params, log_mel(audio, cfg.num_mel_bins), cfg, pol)
         kv = M.precompute_cross_kv(params, enc, cfg, pol, quantize=bits)
-        cache = M.init_cache(cfg, args.batch * k, max_len, dtype=pol.compute_dtype, device=dev)
+        cache = M.init_cache(params, cfg, args.batch * k, max_len, dtype=pol.compute_dtype,
+                             device=dev)
         M.prefill(params, kv, cache, prefix.repeat_interleave(k, dim=0), cfg, pol, beams=k,
                   int8_dots=int8_dots)
         token = prefix[:, -1].repeat_interleave(k)

@@ -118,7 +118,7 @@ def main(argv=None):
 
         def update():
             grads = dict(zip(paths, got))
-            scale = torch.clamp(1.0 / (global_norm(grads.values()) + 1e-6), max=1.0)
+            scale = torch.clamp(1.0 / (global_norm(grads) + 1e-6), max=1.0)
             grads = {p: None if g is None else g * scale for p, g in grads.items()}
             updates, _ = opt.update(grads, state, leaves)
             with torch.no_grad():

@@ -10,13 +10,24 @@ taiwan_whisper_tpu/train/distill.py).
   with LSE, backward kernel). Both decoders read the encoder output; the
   teacher runs under ``no_grad``.
 * Normalisation is by the batch's non-masked token count. In a
-  multi-process run (``parallel.init_distributed``) the step is data
-  parallel, each process holding a slice of the global batch: it
-  all-reduces the token count before the backward and divides each rank's
-  sums by the global count, so the ranks' losses add up to the global
-  batch's and the SUM all-reduce of their gradients (one flat fp32 buffer
-  over the device group) is the single-process gradient of the global
-  batch; clipping, ``grad_norm`` and the logged metrics are global.
+  multi-process run (``parallel.init_distributed``) the ranks form the
+  ``(data, model)`` grid of ``parallel.mesh.make_mesh``. The step is data
+  parallel over the data group, each model group holding a slice of the
+  global batch's rows: it all-reduces the token count over the data group
+  before the backward and divides each rank's sums by the global count, so
+  the data ranks' losses add up to the global batch's and the SUM
+  all-reduce of their gradients (one flat fp32 buffer over the data group)
+  is the single-process gradient of the global batch; the logged metrics
+  are summed over the data group too. Under tensor parallel
+  (``--model_parallel`` M > 1) the ranks of a model group see the same
+  rows and hold shards of the student and teacher (``parallel/specs.py``);
+  the model's own collectives over the model group
+  (``models/whisper.py``) leave every replicated leaf's gradient whole and
+  equal on each of them and each split leaf's its shard's, so nothing is
+  reduced over the world: that would count every token and gradient M
+  times. ``grad_norm`` is the norm of the whole tree (split leaves'
+  squares summed over the model group, replicated leaves counted once),
+  and the clip scale is equal on every rank.
 * Gradients flow only to trainable leaves (the encoder when not frozen,
   the decoder except its positions table): ``requires_grad`` is set on
   exactly those, which is the JAX package's ``zero_frozen``. The global
@@ -33,7 +44,7 @@ import torch
 from ..models import whisper as M
 from ..models.config import DtypePolicy, WhisperConfig
 from ..models.params import layers_to_supervise, named_leaves
-from ..parallel import mesh
+from ..parallel import mesh, specs
 
 LABEL_IGNORE = -100
 
@@ -138,28 +149,39 @@ def trainable_paths(params, freeze_encoder: bool):
             and not (freeze_encoder and path.startswith("encoder."))]
 
 
-def global_norm(grads) -> torch.Tensor:
-    """sqrt of the sum of squares of every gradient, in fp32."""
-    sq = [g.float().square().sum() for g in grads if g is not None]
-    return torch.sqrt(torch.stack(sq).sum())
+def global_norm(grads: Dict[str, Optional[torch.Tensor]]) -> torch.Tensor:
+    """sqrt of the sum of squares of every gradient (by dotted path), in
+    fp32: of the whole tree under tensor parallel, the squares of split
+    leaves summed over the model group and replicated leaves counted
+    once."""
+    split = mesh.model_size() > 1
+    sq = {True: [], False: []}
+    for path, g in grads.items():
+        if g is not None:
+            sq[split and specs.split_dim(path) is not None].append(g.float().square().sum())
+    total = torch.stack(sq[False]).sum() if sq[False] else 0.0
+    if sq[True]:
+        total = total + mesh.all_reduce_sum_(torch.stack(sq[True]).sum(), "model")
+    return torch.sqrt(total)
 
 
 def _global_tokens(batch) -> torch.Tensor:
-    """The label-token count of the global batch (every rank's rows)."""
-    return mesh.all_reduce_sum_((batch["labels"] != LABEL_IGNORE).sum())
+    """The label-token count of the global batch (every data rank's rows)."""
+    return mesh.all_reduce_sum_((batch["labels"] != LABEL_IGNORE).sum(), "data")
 
 
 def _sum_metrics(metrics):
-    """Each metric summed over the ranks (one all-reduce)."""
+    """Each metric summed over the data group (one all-reduce)."""
     keys = list(metrics)
-    total = mesh.all_reduce_sum_(torch.stack([metrics[k] for k in keys]))
+    total = mesh.all_reduce_sum_(torch.stack([metrics[k] for k in keys]), "data")
     return dict(zip(keys, total.unbind()))
 
 
 def _sum_grads(grads):
-    """The gradients summed over the ranks through one flat fp32 buffer."""
+    """The gradients summed over the data group through one flat fp32
+    buffer."""
     present = [g for g in grads if g is not None]
-    flat = mesh.all_reduce_sum_(torch.cat([g.reshape(-1) for g in present]))
+    flat = mesh.all_reduce_sum_(torch.cat([g.reshape(-1) for g in present]), "data")
     summed = iter(torch.split(flat, [g.numel() for g in present]))
     return [None if g is None else next(summed).view_as(g) for g in grads]
 
@@ -188,7 +210,7 @@ def make_train_step(student_config: WhisperConfig, teacher_config: WhisperConfig
             got, metrics = _sum_grads(got), _sum_metrics(metrics)
         grads = dict(zip(paths, got))
         if max_grad_norm is not None:
-            gnorm = global_norm(grads.values())
+            gnorm = global_norm(grads)
             scale = torch.clamp(max_grad_norm / (gnorm + 1e-6), max=1.0)
             grads = {p: None if g is None else g * scale for p, g in grads.items()}
             metrics["grad_norm"] = gnorm

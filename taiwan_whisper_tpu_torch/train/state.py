@@ -11,9 +11,14 @@ leaves hold no moments. The state is a plain dict of tensors and ints.
 ``CheckpointManager`` keeps ``checkpoint-N`` directories with rotation, a
 ``.keep`` mark for the best checkpoint and resume, in the port's own
 ``torch.save`` format (``state.pt``); it does not read the JAX package's
-orbax checkpoints. In a multi-process run the state is replicated: rank 0
-alone clears, writes, marks and rotates, the other ranks wait for it at a
-named barrier, and every rank restores.
+orbax checkpoints. In a multi-process run rank 0 alone clears, writes,
+marks and rotates, the other ranks wait for it at a named barrier, and
+every rank restores. Under tensor parallel each rank holds shards of the
+params and of both AdamW moments: ``save`` gathers them over rank 0's
+model group first, so the checkpoint holds full tensors, and ``restore``
+cuts this rank's shards from them, so a run may resume under another
+``--model_parallel`` (as the JAX package's ``restore(like=...)``
+re-shards).
 """
 
 from __future__ import annotations
@@ -28,7 +33,7 @@ import numpy as np
 import torch
 
 from ..models.params import map_params, named_leaves
-from ..parallel import mesh
+from ..parallel import mesh, specs
 
 Grads = Dict[str, Optional[torch.Tensor]]
 
@@ -166,6 +171,21 @@ _CKPT_RE = re.compile(r"^checkpoint-(\d+)$")
 _STATE = "state.pt"
 
 
+def _map_state(fn: Callable[[str, torch.Tensor], torch.Tensor], state: Dict[str, Any]):
+    """``fn(param path, tensor)`` over a train state ``{"params": tree,
+    "opt_state": ...}``: every leaf of the params tree, and every tensor of
+    the optimizer state, each of which sits in a dict keyed by its
+    parameter's dotted path (``mu``, ``nu``, ``acc``)."""
+    def opt(tree):
+        if isinstance(tree, dict):
+            return {k: fn(k, v) if isinstance(v, torch.Tensor) else opt(v)
+                    for k, v in tree.items()}
+        return tree
+
+    return dict(state, params=map_params(fn, state["params"]),
+                opt_state=opt(state["opt_state"]))
+
+
 def _detached(tree):
     if isinstance(tree, dict):
         return {k: _detached(v) for k, v in tree.items()}
@@ -194,9 +214,20 @@ class CheckpointManager:
                 steps.append(int(m.group(1)))
         return sorted(steps)
 
-    def save(self, step: int, state: Dict[str, Any], keep: bool = False):
+    def save(self, step: int, state: Dict[str, Any],
+             keep: bool = False) -> Optional[Dict[str, Any]]:
         """Every rank calls; rank 0 writes. No rank returns before the
-        checkpoint is complete and rotated."""
+        checkpoint is complete and rotated. Returns, on rank 0, the state
+        as written (under tensor parallel, full tensors gathered over model
+        group 0, on the host, one leaf on the device at a time), and None
+        on every other rank."""
+        if mesh.model_size() > 1 and mesh.data_rank() == 0:
+            # rank 0's model group gathers; rank 0 alone keeps the result
+            def gathered(path, t):
+                full = specs.gather_leaf(path, t)
+                return full.detach().cpu() if mesh.is_main() else None
+
+            state = _map_state(gathered, state)
         path = self._path(step)
         if mesh.is_main():
             if os.path.exists(path):
@@ -211,6 +242,7 @@ class CheckpointManager:
                 open(os.path.join(path, ".keep"), "w").close()
             self._rotate()
         mesh.barrier(f"ckpt_done_{step}")
+        return state if mesh.is_main() else None
 
     def _rotate(self):
         if self.save_total_limit is None:
@@ -226,10 +258,14 @@ class CheckpointManager:
 
     def restore(self, step: Optional[int] = None, map_location=None):
         """(state, step) of ``step`` or the latest checkpoint; (None, None)
-        when there is none."""
+        when there is none. Under tensor parallel the state holds this
+        rank's shards of the checkpoint's full tensors."""
         step = step if step is not None else self.latest_step()
         if step is None:
             return None, None
         state = torch.load(os.path.join(self._path(step), _STATE),
                            map_location=map_location, weights_only=True)
+        if mesh.model_size() > 1:
+            state = _map_state(lambda p, t: specs.shard_leaf(p, t, mesh.model_rank(),
+                                                            mesh.model_size()), state)
         return state, step

@@ -127,11 +127,11 @@ def test_reorder_keeps_padded_strides_and_beam_of_a_nan(setup):
     kernel needs), its values are the gathered rows, positions from i on
     are untouched, and a NaN goes only where its beam goes (the JAX
     package's one-hot product would spread it over the item's beams)."""
-    _, _, _, cfg, _ = setup
+    _, _, params, cfg, _ = setup
     rng = np.random.RandomState(4)
     b, k, s, i = 2, 3, 21, 9
-    cache = M.init_cache(cfg, b * k, s, dtype=torch.float32)
-    spare = M.init_cache(cfg, b * k, s, dtype=torch.float32)
+    cache = M.init_cache(params, cfg, b * k, s, dtype=torch.float32)
+    spare = M.init_cache(params, cfg, b * k, s, dtype=torch.float32)
     for x in (cache.k, cache.v):
         x[..., :i] = torch.from_numpy(rng.randn(*x[..., :i].shape).astype(np.float32))
     cache.k[1, 4, 2, 7, 3] = float("nan")  # item 1, beam 1
@@ -185,7 +185,7 @@ def test_prefill_of_a_long_prompt_with_beams_matches_jax(setup):
                                    aux_index=sot_index, beams=k)
     kv = M.precompute_cross_kv(params, torch.from_numpy(enc), cfg, DtypePolicy.fp32(),
                                quantize=8)
-    cache = M.init_cache(cfg, 10, 240, dtype=torch.float32)
+    cache = M.init_cache(params, cfg, 10, 240, dtype=torch.float32)
     got, got_aux = M.prefill(params, kv, cache, torch.from_numpy(prefix), cfg,
                              DtypePolicy.fp32(), aux_index=sot_index, beams=k)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)

@@ -134,14 +134,3 @@ def test_cli_init_student_matches_jax(tmp_path, corpus):
     assert set(ta) == set(tj)
     for k in ta:
         assert ta[k].dtype == torch.float32 and torch.equal(ta[k], tj[k]), k
-
-
-@pytest.mark.parametrize("sub,model", [("distill", "--teacher"), ("finetune", "--model")])
-def test_cli_refuses_model_parallel(tmp_path, corpus, sub, model):
-    """Tensor parallel (``--model_parallel > 1``) raises before training,
-    naming its ROADMAP item; data parallel (``--distributed``) is ported
-    (tests/test_torch_multiprocess.py)."""
-    with pytest.raises(NotImplementedError, match=r"--model_parallel > 1 .*Queue A 6"):
-        _port(corpus, sub, tmp_path / "o", model, str(corpus / "teacher"),
-              "--model_parallel", "2")
-    assert not os.path.exists(tmp_path / "o" / "metrics.jsonl")

@@ -100,13 +100,13 @@ def test_padded_storage_matches_contiguous(setup, quantize, valid_from):
     enc_t, pre = torch.from_numpy(enc), torch.from_numpy(prefix)
     vf = None if valid_from is None else torch.tensor(valid_from, dtype=torch.int32)
     kv = M.precompute_cross_kv(params, enc_t, cfg, pol, quantize=quantize)
-    cache = M.init_cache(cfg, 4, 21, dtype=torch.float32)
+    cache = M.init_cache(params, cfg, 4, 21, dtype=torch.float32)
     stores = (kv.k_q, kv.v_q) if quantize else kv
     for x in (*stores, cache.k, cache.v):
         assert x.stride(-2) == padded_length(x.shape[-1], x.element_size()) > x.shape[-1]
     # layer 0's K as the contiguous layout computed it
     k0 = M._split_heads(M._dense(params["decoder"]["layers"][0]["cross_attn"]["k"], enc_t),
-                        cfg.decoder_attention_heads).permute(0, 2, 3, 1).contiguous()
+                        cfg.head_dim).permute(0, 2, 3, 1).contiguous()
     if quantize:
         k0 = M._quantize_kv_slice(k0, quantize)[0]
     assert torch.equal(stores[0][0].float(), k0.float())

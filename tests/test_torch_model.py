@@ -91,7 +91,7 @@ def test_prefill_and_steps_match_jax(models, encoded, quantize):
     jcache = JM.init_cache(jcfg, 2, max_len, dtype=jnp.float32)
     jlogits, jcache, jaux = JM.prefill(jp, jkv, jcache, jnp.asarray(prompt), jcfg, JFP32,
                                        aux_index=0)
-    cache = M.init_cache(cfg, 2, max_len, dtype=torch.float32)
+    cache = M.init_cache(params, cfg, 2, max_len, dtype=torch.float32)
     with torch.inference_mode():
         logits, aux = M.prefill(params, kv, cache, torch.from_numpy(prompt), cfg, FP32,
                                 aux_index=0)
@@ -120,7 +120,7 @@ def test_unported_paths_raise(models):
     _, _, params, cfg = models
     kv = M.precompute_cross_kv(params, torch.zeros(1, 60, 64), cfg, FP32)
     with pytest.raises(ValueError):
-        M.extend(params, kv, M.init_cache(cfg, 1, 4, torch.float32),
+        M.extend(params, kv, M.init_cache(params, cfg, 1, 4, torch.float32),
                  torch.zeros(1, 2, dtype=torch.int32), 3, cfg, FP32)
     with pytest.raises(ValueError):
         M.precompute_cross_kv(params, torch.zeros(1, 60, 64), cfg, FP32, quantize="8x8")

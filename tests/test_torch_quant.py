@@ -177,7 +177,7 @@ def test_prefill_and_steps_match_jax(setup, quantize):
     kv = M.precompute_cross_kv(params, torch.from_numpy(enc), cfg, FP32, quantize=bits)
     prompt = _prefix(True, 2)
     jcache = JM.init_cache(jcfg, 2, 16, jnp.float32)
-    cache = M.init_cache(cfg, 2, 16, torch.float32)
+    cache = M.init_cache(params, cfg, 2, 16, torch.float32)
 
     def close(got, want):
         tol = 1e-5 if bits == 4 else 1e-4 * np.abs(want).max()

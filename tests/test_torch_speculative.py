@@ -128,7 +128,7 @@ def test_extend_beams_and_int8_dots_match_jax(teacher, extend_jit, beams, quanti
 
 def test_extend_refuses_positions_past_the_cache(teacher):
     _, _, params, cfg = teacher
-    cache = M.init_cache(cfg, 1, 8, torch.float32)
+    cache = M.init_cache(params, cfg, 1, 8, torch.float32)
     kv = M.precompute_cross_kv(params, torch.zeros(1, 60, 64), cfg, FP32)
     with pytest.raises(ValueError, match="positions 5..8"):
         M.extend(params, kv, cache, torch.zeros(1, 4, dtype=torch.int32), 5, cfg, FP32)
