@@ -27,6 +27,10 @@ Differences from the JAX package, by design:
 * the loop is a Python loop that polls ``done.all()`` every
   ``_POLL_EVERY`` steps; a done item's hypotheses are frozen, so the steps
   run past that point change nothing.
+
+Spans and counters as in ``greedy.py``: ``decode.select`` holds the
+rules, the top-k, the hypothesis bookkeeping and the cache reorder;
+``decode.row_steps`` counts the batch's items, not its beams.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ import torch
 
 from ..models import whisper as M
 from ..models.config import DtypePolicy, WhisperConfig, resolve_device
+from ..utils.profiling import count, span
 from .greedy import cross_kv_mode
 from .rules import DecodeRules, apply_rules
 
@@ -56,6 +61,7 @@ class BeamResult:
     lengths: torch.Tensor  # [B] sampled non-eot tokens of the best hypothesis
     sum_logprobs: torch.Tensor  # [B] its total logprob, eot included
     no_speech_probs: torch.Tensor  # [B] P(<|nospeech|>) at the sot position
+    steps: int  # decode loop iterations run (host-side)
 
 
 def _top_k(x: torch.Tensor, k: int):
@@ -110,14 +116,18 @@ def beam_decode(params, enc_out: torch.Tensor, prefix: torch.Tensor, config: Whi
     begin_suppress = torch.from_numpy(rules.begin_suppress_mask()).to(dev)
 
     quantize, int8_dots = cross_kv_mode(quantize_cross_kv)
-    cross_kv = M.precompute_cross_kv(params, enc_out, config, policy, quantize=quantize)
-    cache = M.init_cache(params, config, b * k, max_len, dtype=policy.compute_dtype, device=dev)
-    spare = M.init_cache(params, config, b * k, max_len, dtype=policy.compute_dtype, device=dev)
-    prefix_rep = prefix.repeat_interleave(k, dim=0)
-    logits, sot_logits = M.prefill(params, cross_kv, cache, prefix_rep, config, policy,
-                                   aux_index=sot_index, beams=k, int8_dots=int8_dots)
-    # the beams are identical at prefill: one no-speech probe per item
-    no_speech_probs = torch.softmax(sot_logits[::k], dim=-1)[:, rules.no_speech]
+    with span("decode.cross_kv"):
+        cross_kv = M.precompute_cross_kv(params, enc_out, config, policy, quantize=quantize)
+    with span("decode.prefill"):
+        cache = M.init_cache(params, config, b * k, max_len, dtype=policy.compute_dtype,
+                             device=dev)
+        spare = M.init_cache(params, config, b * k, max_len, dtype=policy.compute_dtype,
+                             device=dev)
+        prefix_rep = prefix.repeat_interleave(k, dim=0)
+        logits, sot_logits = M.prefill(params, cross_kv, cache, prefix_rep, config, policy,
+                                       aux_index=sot_index, beams=k, int8_dots=int8_dots)
+        # the beams are identical at prefill: one no-speech probe per item
+        no_speech_probs = torch.softmax(sot_logits[::k], dim=-1)[:, rules.no_speech]
 
     alive_seq = torch.full((b, k, max_len), eot, dtype=torch.int32, device=dev)
     alive_seq[:, :, :p_len] = prefix_rep.view(b, k, p_len)
@@ -131,58 +141,68 @@ def beam_decode(params, enc_out: torch.Tensor, prefix: torch.Tensor, config: Whi
     cand_rank = torch.arange(2 * k, device=dev)[None, :]
     item_base = torch.arange(b, device=dev)[:, None] * k
 
-    cur = p_len
-    for i in range(p_len, max_len):
-        step = i - p_len
-        if step and step % _POLL_EVERY == 0 and bool(done.all()):
-            break
-        flat_seq = alive_seq.view(b * k, max_len)
-        # HF log-softmaxes first and masks the normalised scores without
-        # renormalising, so each beam's constant does not see the mask
-        logprobs = apply_rules(
-            torch.log_softmax(logits, dim=-1), step=step, last_token=flat_seq[:, i - 1],
-            penult_token=flat_seq[:, max(i - 2, 0)], last_timestamp=alive_ts.view(-1),
-            rules=rules, suppress=suppress, begin_suppress=begin_suppress)
-        total = logprobs.view(b, k, vocab) + alive_logp[:, :, None]
-        cand_logp, cand_idx = _top_k(total.view(b, k * vocab), 2 * k)
-        cand_beam, cand_tok = cand_idx // vocab, cand_idx % vocab
-        is_eos = cand_tok == eot
+    steps = 0
+    with span("decode.loop"):
+        for i in range(p_len, max_len):
+            step = i - p_len
+            if step and step % _POLL_EVERY == 0:
+                with span("decode.poll"):
+                    all_done = bool(done.all())
+                if all_done:
+                    break
+            with span("decode.select"):
+                flat_seq = alive_seq.view(b * k, max_len)
+                # HF log-softmaxes first and masks the normalised scores without
+                # renormalising, so each beam's constant does not see the mask
+                logprobs = apply_rules(
+                    torch.log_softmax(logits, dim=-1), step=step,
+                    last_token=flat_seq[:, i - 1], penult_token=flat_seq[:, max(i - 2, 0)],
+                    last_timestamp=alive_ts.view(-1), rules=rules, suppress=suppress,
+                    begin_suppress=begin_suppress)
+                total = logprobs.view(b, k, vocab) + alive_logp[:, :, None]
+                cand_logp, cand_idx = _top_k(total.view(b, k * vocab), 2 * k)
+                cand_beam, cand_tok = cand_idx // vocab, cand_idx % vocab
+                is_eos = cand_tok == eot
 
-        # the hypothesis set: eot candidates ranked in the top K, while the
-        # item is not done, scored at the full length i
-        hyp_len = float(i)
-        eos_ok = is_eos & (cand_rank < k) & ~done[:, None]
-        eos_scores = torch.where(eos_ok, cand_logp / hyp_len, NEG_INF)
-        merged_seq = torch.cat([fin_seq, _gather_beams(alive_seq, cand_beam)], dim=1)
-        merged_exists = torch.cat([fin_exists, eos_ok], dim=1)
-        rank_scores = torch.where(merged_exists, torch.cat([fin_scores, eos_scores], dim=1),
-                                  NEG_INF)
-        fin_scores, top_fin = _top_k(rank_scores, k)
-        fin_exists = merged_exists.gather(1, top_fin)
-        fin_seq = _gather_beams(merged_seq, top_fin)
+                # the hypothesis set: eot candidates ranked in the top K, while
+                # the item is not done, scored at the full length i
+                hyp_len = float(i)
+                eos_ok = is_eos & (cand_rank < k) & ~done[:, None]
+                eos_scores = torch.where(eos_ok, cand_logp / hyp_len, NEG_INF)
+                merged_seq = torch.cat([fin_seq, _gather_beams(alive_seq, cand_beam)], dim=1)
+                merged_exists = torch.cat([fin_exists, eos_ok], dim=1)
+                rank_scores = torch.where(merged_exists,
+                                          torch.cat([fin_scores, eos_scores], dim=1), NEG_INF)
+                fin_scores, top_fin = _top_k(rank_scores, k)
+                fin_exists = merged_exists.gather(1, top_fin)
+                fin_seq = _gather_beams(merged_seq, top_fin)
 
-        # done: K hypotheses held, and the best candidate cannot beat the worst
-        best_attainable = cand_logp.amax(dim=1) / hyp_len
-        worst_fin = torch.where(fin_exists, fin_scores, NEG_INF).amin(dim=1)
-        done = done | (fin_exists.all(dim=1) & (worst_fin >= best_attainable))
+                # done: K hypotheses held, and the best candidate cannot beat
+                # the worst
+                best_attainable = cand_logp.amax(dim=1) / hyp_len
+                worst_fin = torch.where(fin_exists, fin_scores, NEG_INF).amin(dim=1)
+                done = done | (fin_exists.all(dim=1) & (worst_fin >= best_attainable))
 
-        # the alive set: the best K candidates that are not eot, in order
-        alive_rank = torch.where(is_eos, NEG_INF, cand_logp)
-        alive_logp, top_alive = _top_k(alive_rank, k)
-        new_beam = cand_beam.gather(1, top_alive)
-        new_tok = cand_tok.gather(1, top_alive)
-        alive_seq = _gather_beams(alive_seq, new_beam)
-        alive_seq[:, :, i] = new_tok.to(torch.int32)
-        alive_ts = torch.where(new_tok >= ts_begin, new_tok,
-                               alive_ts.gather(1, new_beam)).to(torch.int32)
+                # the alive set: the best K candidates that are not eot, in order
+                alive_rank = torch.where(is_eos, NEG_INF, cand_logp)
+                alive_logp, top_alive = _top_k(alive_rank, k)
+                new_beam = cand_beam.gather(1, top_alive)
+                new_tok = cand_tok.gather(1, top_alive)
+                alive_seq = _gather_beams(alive_seq, new_beam)
+                alive_seq[:, :, i] = new_tok.to(torch.int32)
+                alive_ts = torch.where(new_tok >= ts_begin, new_tok,
+                                       alive_ts.gather(1, new_beam)).to(torch.int32)
 
-        cache, spare = reorder_cache(cache, spare, (new_beam + item_base).view(-1), i)
-        logits = M.decode_step(params, cross_kv, cache, new_tok.view(-1), i, config, policy,
-                               beams=k, int8_dots=int8_dots)
-        cur = i + 1
+                cache, spare = reorder_cache(cache, spare, (new_beam + item_base).view(-1), i)
+            with span("decode.step"):
+                logits = M.decode_step(params, cross_kv, cache, new_tok.view(-1), i, config,
+                                       policy, beams=k, int8_dots=int8_dots)
+            steps += 1
+    count("decode.steps", steps)
+    count("decode.row_steps", steps * b)
 
     # finalisation: items not done enter their alive beams at the final length
-    alive_scores = torch.where(done[:, None], NEG_INF, alive_logp / float(cur))
+    alive_scores = torch.where(done[:, None], NEG_INF, alive_logp / float(p_len + steps))
     merged_exists = torch.cat([fin_exists, (~done[:, None]).expand(b, k)], dim=1)
     rank_scores = torch.where(merged_exists, torch.cat([fin_scores, alive_scores], dim=1),
                               NEG_INF)
@@ -197,4 +217,4 @@ def beam_decode(params, enc_out: torch.Tensor, prefix: torch.Tensor, config: Whi
     sum_logprobs = all_scores[:, 0] * (p_len + lengths).float()
     return BeamResult(tokens=best, scores=all_scores[:, 0], all_tokens=all_tokens,
                       all_scores=all_scores, lengths=lengths, sum_logprobs=sum_logprobs,
-                      no_speech_probs=no_speech_probs)
+                      no_speech_probs=no_speech_probs, steps=steps)

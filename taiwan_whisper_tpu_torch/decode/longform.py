@@ -29,6 +29,7 @@ from ..models.config import DtypePolicy, WhisperConfig, resolve_device
 from ..models.params import prepare_params
 from ..ops.mel_kernel import log_mel
 from ..text.tokenizer import TIME_PRECISION, SpecialTokens, WhisperTokenizer
+from ..utils.profiling import span
 from .beam import beam_decode
 from .greedy import greedy_decode
 from .rules import DecodeRules
@@ -160,9 +161,11 @@ def decode_audio(params, audio: torch.Tensor, prefix: torch.Tensor, config: Whis
                  num_beams: int = 1, mel_fn=None, device=None):
     """One device batch of fp32 audio [B, N]: log-mel (the kernel, or
     ``mel_fn(audio)`` when given) -> encode -> beam search when
-    ``num_beams`` > 1, else greedy."""
-    mel = mel_fn(audio) if mel_fn is not None else log_mel(audio, config.num_mel_bins)
-    with torch.inference_mode():
+    ``num_beams`` > 1, else greedy. Spans ``decode.mel`` and ``decode.encode``
+    (``utils/profiling.py``), then those of the decoder."""
+    with span("decode.mel"):
+        mel = mel_fn(audio) if mel_fn is not None else log_mel(audio, config.num_mel_bins)
+    with span("decode.encode"), torch.inference_mode():
         enc = M.encode(params, mel, config, policy)
     if num_beams > 1:
         return beam_decode(params, enc, prefix, config, rules, policy, num_beams=num_beams,

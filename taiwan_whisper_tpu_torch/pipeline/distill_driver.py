@@ -61,6 +61,7 @@ from ..train.distill import DistillConfig, make_eval_step, make_train_step
 from ..train.state import CheckpointManager, OptimConfig, make_optimizer, trainable_mask
 from ..utils.logging import MetricsLogger
 from ..utils.prefetch import prefetch
+from ..utils.profiling import span
 from .dataset import TrainPrepConfig, train_batches
 
 
@@ -169,12 +170,13 @@ def run_distillation(train_manifest_path: str, teacher_dir: str, output_dir: str
 
     def to_device(batch) -> Dict[str, torch.Tensor]:
         """This rank's rows of a global batch on the device, with their
-        log-mel."""
-        audio = torch.from_numpy(batch["audio"][rows]).to(dev)
-        return {"mel": mel_kernel.log_mel(audio, student_cfg.num_mel_bins),
-                "decoder_input_ids":
-                    torch.from_numpy(batch["decoder_input_ids"][rows]).to(dev),
-                "labels": torch.from_numpy(batch["labels"][rows]).to(dev)}
+        log-mel (span ``train.upload``)."""
+        with span("train.upload"):
+            audio = torch.from_numpy(batch["audio"][rows]).to(dev)
+            return {"mel": mel_kernel.log_mel(audio, student_cfg.num_mel_bins),
+                    "decoder_input_ids":
+                        torch.from_numpy(batch["decoder_input_ids"][rows]).to(dev),
+                    "labels": torch.from_numpy(batch["labels"][rows]).to(dev)}
 
     # held-out eval: loss-only over a fixed batch set, tracking the best
     # checkpoint

@@ -29,6 +29,17 @@ shared when the two models' encoders have the same width and depth.
 (``parallel.host_local_slice``: all of it outside a multi-process run),
 and also labels a ground-truth split when given one and scores the
 pseudo-labels against it (``validate_labels``: MER, EN-WER, ZH-CER).
+
+Each ``label_files`` call's stats carry ``spans`` and ``counts``: what the
+port's spans and counters (``utils/profiling.py``) took during that call.
+The pooled and resident drivers time their waits, VAD, decode and scatter
+as spans that also add to the stats' seconds (``label.load_wait`` ->
+``load_wait_s``, ``label.stage_wait`` / ``label.upload_wait``, ``label.vad``
+-> ``vad_s``, ``label.scatter`` -> ``scatter_s``; ``label.decode``, the
+batch's enqueue, and ``label.fetch``, the copy of its tokens and lengths
+to the host, -> ``decode_s``), and count ``label.live_row_steps``: over the
+real rows of each batch, the decode steps that served a row still
+decoding, ``min(length + 1, steps)``.
 """
 
 from __future__ import annotations
@@ -58,6 +69,7 @@ from ..models.params import prepare_params
 from ..ops.mel_kernel import log_mel
 from ..parallel.mesh import host_local_slice
 from ..text.tokenizer import WhisperTokenizer
+from ..utils import profiling
 from .vad import (_VAD_CALL_SEGS, _VAD_SEG_SAMPLES, detect_speech_regions,
                   resolve_vad_mode, spectral_regions_device_batch)
 
@@ -173,6 +185,12 @@ def _file_to_tasks(file_idx: int, audio: np.ndarray, cfg: LabelConfig, chunk_s: 
     return tasks
 
 
+def live_row_steps(lengths: np.ndarray, steps: int) -> int:
+    """Decode steps that served a row still decoding, over ``lengths``
+    (each row's sampled tokens less eot; its eot step counts too)."""
+    return int(np.minimum(np.asarray(lengths, np.int64) + 1, steps).sum())
+
+
 def decode_batch(params, wire: torch.Tensor, prefix: torch.Tensor, config: WhisperConfig,
                  rules: DecodeRules, policy: DtypePolicy, *, max_len, quantize_kv,
                  num_beams: int = 1, device):
@@ -204,13 +222,23 @@ def label_files(
     under "auto" when the VAD mode allows it; a resident request with
     another VAD mode raises. The sequential strategy, ``pooled=False``, or
     an ``assistant`` ((params, config) of a draft model: speculative
-    decoding) labels file by file."""
+    decoding) labels file by file. The stats' ``spans`` and ``counts`` are
+    what this call took of the port's spans and counters."""
     dev = resolve_device(device)
     _check_supported(cfg)
     os.makedirs(output_dir, exist_ok=True)
+    snap = profiling.snapshot()
+    stats = _label_files_routed(params, config, tok, audio_paths, output_dir, cfg, policy,
+                                device=dev, log_every=log_every, assistant=assistant)
+    stats.update(profiling.since(snap))
+    return stats
+
+
+def _label_files_routed(params, config, tok, audio_paths, output_dir, cfg, policy, *, device,
+                        log_every, assistant) -> dict:
     if cfg.strategy != "chunked" or not cfg.pooled or assistant is not None:
         return _label_files_per_file(params, config, tok, audio_paths, output_dir, cfg, policy,
-                                     device=dev, log_every=log_every, assistant=assistant)
+                                     device=device, log_every=log_every, assistant=assistant)
     resident_ok = (cfg.wire_mode in ("auto", "resident")
                    and (not cfg.vad_regions
                         or cfg.vad_mode in ("spectral", "spectral-device", "off")))
@@ -220,9 +248,9 @@ def label_files(
         from .label_resident import label_files_resident
 
         return label_files_resident(params, config, tok, audio_paths, output_dir, cfg,
-                                    policy, device=dev, log_every=log_every)
+                                    policy, device=device, log_every=log_every)
     return _label_files_pooled(params, config, tok, audio_paths, output_dir, cfg, policy,
-                               device=dev, log_every=log_every)
+                               device=device, log_every=log_every)
 
 
 def _label_files_pooled(params, config: WhisperConfig, tok: WhisperTokenizer,
@@ -277,35 +305,36 @@ def _label_files_pooled(params, config: WhisperConfig, tok: WhisperTokenizer,
 
     def process_oldest():
         batch, fut = staged.popleft()
-        tw = time.perf_counter()
-        wire = fut.result()
-        stats["stage_wait_s"] += time.perf_counter() - tw
-        td = time.perf_counter()
-        res = decode_batch(params, wire, prefix, config, rules, policy, max_len=max_len,
-                           quantize_kv=cfg.quantize_kv, num_beams=cfg.num_beams, device=dev)
-        tokens = res.tokens.cpu().numpy()
-        lengths = res.lengths.cpu().numpy()
-        stats["decode_s"] += time.perf_counter() - td
+        with profiling.span("label.stage_wait", stats, "stage_wait_s"):
+            wire = fut.result()
+        with profiling.span("label.decode", stats, "decode_s"):
+            res = decode_batch(params, wire, prefix, config, rules, policy, max_len=max_len,
+                               quantize_kv=cfg.quantize_kv, num_beams=cfg.num_beams,
+                               device=dev)
+        with profiling.span("label.fetch", stats, "decode_s"):
+            tokens = res.tokens.cpu().numpy()
+            lengths = res.lengths.cpu().numpy()
         stats["batches"] += 1
         stats["pad_slots"] += bs - len(batch)
-        ts = time.perf_counter()
-        for j, t in enumerate(batch):
-            sampled = tokens[j][len(sot_seq): len(sot_seq) + int(lengths[j])].tolist()
-            segs, _, _ = _tokens_to_segments(sampled, special, t.offset, t.window_duration)
-            lo = t.offset + t.stride_left
-            hi = t.offset + chunk_s - t.stride_right
-            st = states[t.file_idx]
-            for s in segs:
-                if (s.start >= lo or t.stride_left == 0.0) and (
-                    s.start < hi or t.stride_right == 0.0
-                ):
-                    s.start += t.region_start  # post-shift: per-file order
-                    s.end += t.region_start
-                    st["segments"].append(s)
-            st["remaining"] -= 1
-            if st["remaining"] == 0 and st["produced"]:
-                finish_file(t.file_idx)
-        stats["scatter_s"] += time.perf_counter() - ts
+        profiling.count("label.live_row_steps", live_row_steps(lengths[:len(batch)], res.steps))
+        with profiling.span("label.scatter", stats, "scatter_s"):
+            for j, t in enumerate(batch):
+                sampled = tokens[j][len(sot_seq): len(sot_seq) + int(lengths[j])].tolist()
+                segs, _, _ = _tokens_to_segments(sampled, special, t.offset,
+                                                 t.window_duration)
+                lo = t.offset + t.stride_left
+                hi = t.offset + chunk_s - t.stride_right
+                st = states[t.file_idx]
+                for s in segs:
+                    if (s.start >= lo or t.stride_left == 0.0) and (
+                        s.start < hi or t.stride_right == 0.0
+                    ):
+                        s.start += t.region_start  # post-shift: per-file order
+                        s.end += t.region_start
+                        st["segments"].append(s)
+                st["remaining"] -= 1
+                if st["remaining"] == 0 and st["produced"]:
+                    finish_file(t.file_idx)
 
     def drain(force=False):
         while len(buffer) >= bs or (force and buffer):
@@ -363,9 +392,8 @@ def _label_files_pooled(params, config: WhisperConfig, tok: WhisperTokenizer,
         nonlocal vad_pending, vad_pending_segs
         if not vad_pending or (not force and vad_pending_segs < _VAD_CALL_SEGS):
             return
-        tv = time.perf_counter()
-        regions_list = spectral_regions_device_batch([a for _, a in vad_pending], dev)
-        stats["vad_s"] += time.perf_counter() - tv
+        with profiling.span("label.vad", stats, "vad_s"):
+            regions_list = spectral_regions_device_batch([a for _, a in vad_pending], dev)
         for (idx, audio), regions in zip(vad_pending, regions_list):
             ingest_tasks(idx, _file_to_tasks(idx, audio, cfg, chunk_s, stride_s, dev,
                                              regions=regions))
@@ -387,9 +415,8 @@ def _label_files_pooled(params, config: WhisperConfig, tok: WhisperTokenizer,
 
         top_up()
         while inflight:
-            tl = time.perf_counter()
-            idx, payload, secs, err = inflight.pop(0).result()
-            stats["load_wait_s"] += time.perf_counter() - tl
+            with profiling.span("label.load_wait", stats, "load_wait_s"):
+                idx, payload, secs, err = inflight.pop(0).result()
             top_up()
             if payload is None:
                 print(f"[label] failed to read {audio_paths[idx]}: {err}")

@@ -56,6 +56,7 @@ from ..decode.rules import DecodeRules
 from ..models.config import DtypePolicy, WhisperConfig
 from ..models.params import prepare_params
 from ..text.tokenizer import WhisperTokenizer
+from ..utils.profiling import count, span
 from .vad import (_VAD_CALL_SEGS, _VAD_SEG_SAMPLES, _WIN, SAMPLE_RATE, _scores_dict,
                   _device_scorer, spectral_speech_regions)
 
@@ -179,7 +180,8 @@ def label_files_resident(
     device: torch.device,
     log_every: int = 10,
 ) -> dict:
-    from .label import READ_ERRORS, decode_audio, energy_vad_is_speech, write_label_csv
+    from .label import (READ_ERRORS, decode_audio, energy_vad_is_speech, live_row_steps,
+                        write_label_csv)
 
     dev = device
     params = prepare_params(params, policy, dev)
@@ -217,7 +219,7 @@ def label_files_resident(
     os.makedirs(output_dir, exist_ok=True)
     stats = dict(files=0, skipped=0, failed=0, audio_seconds=0.0,
                  chunks=0, batches=0, pad_slots=0, groups=0,
-                 vad_s=0.0, decode_s=0.0, upload_wait_s=0.0, load_wait_s=0.0)
+                 vad_s=0.0, decode_s=0.0, upload_wait_s=0.0, load_wait_s=0.0, scatter_s=0.0)
     t0 = time.time()
 
     files: Dict[int, _FileState] = {}
@@ -303,13 +305,11 @@ def label_files_resident(
         copy of the result on the pull thread. Groups holding only packed
         pseudo-file data (regions already known) are never scored."""
         tg, fut = upload_futs.popleft()
-        tw = time.perf_counter()
-        dev_groups[tg] = fut.result()
-        stats["upload_wait_s"] += time.perf_counter() - tw
+        with span("label.upload_wait", stats, "upload_wait_s"):
+            dev_groups[tg] = fut.result()
         if vad_enabled and tg in vad_score_groups:
-            tv = time.perf_counter()
-            res = vad_group(dev_groups[tg])
-            stats["vad_s"] += time.perf_counter() - tv
+            with span("label.vad", stats, "vad_s"):
+                res = vad_group(dev_groups[tg])
             score_futs.append((tg, pull_pool.submit(lambda r=res: r.cpu().numpy())))
 
     def pump_scores(force=False):
@@ -317,9 +317,8 @@ def label_files_resident(
         recurse into drain/run_batch)."""
         while score_futs and (force or score_futs[0][1].done()):
             tg, fut = score_futs.popleft()
-            tv = time.perf_counter()
-            scores = fut.result()
-            stats["vad_s"] += time.perf_counter() - tv
+            with span("label.vad", stats, "vad_s"):
+                scores = fut.result()
             deliver_scores(tg, scores)
 
     def ensure_group(g) -> torch.Tensor:
@@ -480,46 +479,46 @@ def label_files_resident(
         for j, t in enumerate(batch):
             starts[j] = t.start - g * l_stream
             valid[j] = t.valid
-        td = time.perf_counter()
-        res = decode_from_bufs(buf_a, buf_b, starts, valid)
-        stats["decode_s"] += time.perf_counter() - td
+        with span("label.decode", stats, "decode_s"):
+            res = decode_from_bufs(buf_a, buf_b, starts, valid)
         decode_inflight.append((batch, res))
         while len(decode_inflight) > 1:
             scatter_oldest()
 
     def scatter_oldest():
         batch, res = decode_inflight.popleft()
-        td = time.perf_counter()
-        tokens = res.tokens.cpu().numpy()
-        lengths = res.lengths.cpu().numpy()
-        stats["decode_s"] += time.perf_counter() - td
+        with span("label.fetch", stats, "decode_s"):
+            tokens = res.tokens.cpu().numpy()
+            lengths = res.lengths.cpu().numpy()
         stats["batches"] += 1
         stats["pad_slots"] += bs - len(batch)
-        for j, t in enumerate(batch):
-            sampled = tokens[j][
-                len(sot_seq): len(sot_seq) + int(lengths[j])
-            ].tolist()
-            segs, _, _ = _tokens_to_segments(
-                sampled, special, t.offset, t.window_duration
-            )
-            fs = files[t.file_idx]
-            if t.pieces is not None:  # packed window: piecewise re-map
-                fs.segments.extend(map_packed_segments(segs, t.pieces))
-            else:
-                lo = t.offset + t.stride_left
-                hi = t.offset + chunk_s - t.stride_right
-                for s in segs:
-                    if (s.start >= lo or t.stride_left == 0.0) and (
-                        s.start < hi or t.stride_right == 0.0
-                    ):
-                        s.start += t.region_start
-                        s.end += t.region_start
-                        fs.segments.append(s)
-            fs.remaining -= 1
-            group_pending_chunks[t.group] -= 1
-            if fs.remaining == 0:
-                finish_file(fs)
-        free_groups()
+        count("label.live_row_steps", live_row_steps(lengths[:len(batch)], res.steps))
+        with span("label.scatter", stats, "scatter_s"):
+            for j, t in enumerate(batch):
+                sampled = tokens[j][
+                    len(sot_seq): len(sot_seq) + int(lengths[j])
+                ].tolist()
+                segs, _, _ = _tokens_to_segments(
+                    sampled, special, t.offset, t.window_duration
+                )
+                fs = files[t.file_idx]
+                if t.pieces is not None:  # packed window: piecewise re-map
+                    fs.segments.extend(map_packed_segments(segs, t.pieces))
+                else:
+                    lo = t.offset + t.stride_left
+                    hi = t.offset + chunk_s - t.stride_right
+                    for s in segs:
+                        if (s.start >= lo or t.stride_left == 0.0) and (
+                            s.start < hi or t.stride_right == 0.0
+                        ):
+                            s.start += t.region_start
+                            s.end += t.region_start
+                            fs.segments.append(s)
+                fs.remaining -= 1
+                group_pending_chunks[t.group] -= 1
+                if fs.remaining == 0:
+                    finish_file(fs)
+            free_groups()
 
     def free_groups():
         # a group stays resident while (a) any unfinished file's content
@@ -604,9 +603,8 @@ def label_files_resident(
             top_up()
             while inflight:
                 out_csv, fut = inflight.popleft()
-                tl = time.perf_counter()
-                idx, payload, secs, err = fut.result()
-                stats["load_wait_s"] += time.perf_counter() - tl
+                with span("label.load_wait", stats, "load_wait_s"):
+                    idx, payload, secs, err = fut.result()
                 top_up()
                 if payload is None:
                     print(f"[label] failed to read {audio_paths[idx]}: "

@@ -32,6 +32,11 @@ taiwan_whisper_tpu/train/distill.py).
   the decoder except its positions table): ``requires_grad`` is set on
   exactly those, which is the JAX package's ``zero_frozen``. The global
   norm clip and the AdamW update run in fp32 on the fp32 masters, in place.
+* Spans (``utils/profiling.py``): ``train.encode``, ``train.student`` and
+  ``train.teacher`` (the three forwards), ``train.backward`` (the
+  ``autograd.grad`` call; on a card its kernels launch from autograd's
+  device thread, outside the range) and ``train.optimizer`` (the
+  data-parallel sums, the clip, AdamW and the in-place apply).
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ from ..models import whisper as M
 from ..models.config import DtypePolicy, WhisperConfig
 from ..models.params import layers_to_supervise, named_leaves
 from ..parallel import mesh, specs
+from ..utils.profiling import span
 
 LABEL_IGNORE = -100
 
@@ -97,21 +103,23 @@ def distill_loss(student_params, teacher_params, batch: Dict[str, torch.Tensor],
     batch's label tokens divided by ``n_tok`` (the global count of a
     data-parallel step; the batch's own count when not given)."""
     mel, dec_in, labels = batch["mel"], batch["decoder_input_ids"], batch["labels"]
-    if dcfg.freeze_encoder:
-        with torch.no_grad():
-            enc = M.encode(student_params, mel, student_config, policy, remat=False)
-    else:
-        enc = M.encode(student_params, mel, student_config, policy)
+    with span("train.encode"):
+        if dcfg.freeze_encoder:
+            with torch.no_grad():
+                enc = M.encode(student_params, mel, student_config, policy, remat=False)
+        else:
+            enc = M.encode(student_params, mel, student_config, policy)
 
     need_mse = dcfg.mse_weight > 0.0
     # CE-only fine-tuning skips the teacher forward entirely
     need_teacher = dcfg.kl_weight > 0.0 or need_mse
-    s_out = M.decode_train(student_params, enc, dec_in, student_config, policy,
-                           output_hidden_states=need_mse, remat=dcfg.remat_student)
+    with span("train.student"):
+        s_out = M.decode_train(student_params, enc, dec_in, student_config, policy,
+                               output_hidden_states=need_mse, remat=dcfg.remat_student)
     s_logits, s_hidden = s_out if need_mse else (s_out, None)
     t_logits = t_hidden = None
     if need_teacher:
-        with torch.no_grad():
+        with span("train.teacher"), torch.no_grad():
             t_out = M.decode_train(teacher_params, enc.detach(), dec_in, teacher_config,
                                    policy, output_hidden_states=need_mse, remat=False)
         t_logits, t_hidden = t_out if need_mse else (t_out, None)
@@ -204,21 +212,23 @@ def make_train_step(student_config: WhisperConfig, teacher_config: WhisperConfig
         n_tok = _global_tokens(batch) if data_parallel else None
         loss, metrics = distill_loss(student_params, teacher_params, batch, student_config,
                                      teacher_config, dcfg, policy, n_tok)
-        got = torch.autograd.grad(loss, [leaves[p] for p in paths], allow_unused=True)
+        with span("train.backward"):
+            got = torch.autograd.grad(loss, [leaves[p] for p in paths], allow_unused=True)
         metrics = {k: v.detach() for k, v in metrics.items()}
-        if data_parallel:
-            got, metrics = _sum_grads(got), _sum_metrics(metrics)
-        grads = dict(zip(paths, got))
-        if max_grad_norm is not None:
-            gnorm = global_norm(grads)
-            scale = torch.clamp(max_grad_norm / (gnorm + 1e-6), max=1.0)
-            grads = {p: None if g is None else g * scale for p, g in grads.items()}
-            metrics["grad_norm"] = gnorm
-        updates, opt_state = optimizer.update(grads, opt_state, leaves)
-        with torch.no_grad():
-            for path, u in updates.items():
-                if u is not None:
-                    leaves[path].add_(u.to(leaves[path].dtype))
+        with span("train.optimizer"):
+            if data_parallel:
+                got, metrics = _sum_grads(got), _sum_metrics(metrics)
+            grads = dict(zip(paths, got))
+            if max_grad_norm is not None:
+                gnorm = global_norm(grads)
+                scale = torch.clamp(max_grad_norm / (gnorm + 1e-6), max=1.0)
+                grads = {p: None if g is None else g * scale for p, g in grads.items()}
+                metrics["grad_norm"] = gnorm
+            updates, opt_state = optimizer.update(grads, opt_state, leaves)
+            with torch.no_grad():
+                for path, u in updates.items():
+                    if u is not None:
+                        leaves[path].add_(u.to(leaves[path].dtype))
         return student_params, opt_state, metrics
 
     return train_step

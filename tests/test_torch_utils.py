@@ -1,8 +1,9 @@
 """The port's host utilities against the JAX package's: corpus ingest
 (``convert_to_flac_16k`` from WAV and FLAC, the error without ffmpeg,
 ``batch_convert`` with ``duration_stats``), corpus bookkeeping (the cases
-of tests/test_corpus.py), the profiling hooks (``StepTimer``,
-``device_time`` on the CPU, ``trace`` writing a Chrome trace), the figure
+of tests/test_corpus.py), the profiling hooks (``device_time``
+on the CPU, ``trace`` writing a Chrome trace; the spans and counters are
+in test_torch_tracing.py), the figure
 panels, and ``push_to_hub`` through a stub ``huggingface_hub`` (never the
 network)."""
 
@@ -155,14 +156,6 @@ def test_categorize_and_distribution_match_jax(tmp_path, move):
     # layout only: the buckets exist and hold nothing yet
     moved = {"900": 2.0, "100": 1.0, "unknown": 0.5} if move else {}
     assert dist == pytest.approx({c: moved.get(c, 0.0) for c in port_corpus.category_names()})
-
-
-def test_step_timer():
-    t = profiling.StepTimer(window=10)
-    assert t.mean_step_seconds == 0.0 and t.steps_per_second == 0.0
-    assert t.tick() is None
-    assert t.tick() is not None
-    assert t.steps_per_second > 0
 
 
 @pytest.mark.parametrize("out", ["tensor", "tuple", "dict", "dataclass", "none"])
