@@ -19,7 +19,8 @@ Phases, each raising on failure:
    prints ptxas's register and spill lines, each library's spilled bytes
    and, from ``cuobjdump -sass``, the count of wgmma (HGMMA) and TMA-load
    (UTMALDG) instructions in the two attention libraries (fails if either
-   is 0).
+   is 0), and in each bf16 instantiation of the forward (the non-causal
+   and the causal one).
 2. kernels — calls each kernel's wrapper, in every variant a driven path
    launches, and holds it against its plain PyTorch version on the same
    inputs, with the tolerance stated beside it: bf16 at the labelling
@@ -32,7 +33,11 @@ Phases, each raising on failure:
    448-position cache at index 447, 200 and 3), the log-mel kernel at 32,
    64 and 16 x 30 s and with 128 mels, and the LayerNorm kernel (on no path, as in the JAX package) at
    the encoder's LN shape and at d = 384 and 4096; fails if ptxas spilled
-   in the mel or LayerNorm kernels. The attention kernels are
+   in the mel or LayerNorm kernels. The decoder attention (distillation's
+   teacher) at batch 32 x 20 heads over 448 tokens: causal self-attention
+   and cross-attention over 1500 encoder positions, each also peaked; and
+   away from those shapes (ragged, one row, Sq > Sk, strided views),
+   counters checked. The attention kernels are
    also held, both directions, at S = 300, at B = 1 and on q/k/v that are
    strided views of one [B, S, 3, H, 64] buffer, with their launch
    counters checked; the decode kernels on a contiguous (not row-padded)
@@ -140,9 +145,10 @@ Phases, each raising on failure:
    ``cli finetune`` of the student with the encoder trainable at batch 8.
    A few steps each on one synthetic 30 s WAV segment listed many times
    with a byte-level vocab, so every step sees the same batch and the
-   loss must fall; launch counters are checked per run (distill: mel 1
-   and encoder forward 32 per step; finetune: mel 1, encoder forward 64,
-   as each checkpointed layer runs twice, and backward 32 per step).
+   loss must fall; launch counters are checked per run (distill: mel 1,
+   encoder forward 32 and the teacher's decoder attention 64 per step;
+   finetune: mel 1, encoder forward 64, as each checkpointed layer runs
+   twice, and backward 32 per step).
 6b. distributed — multi-process runs of the port's CLI, every rank a
    process of its own with the launcher's environment (RANK, WORLD_SIZE,
    LOCAL_RANK 0, MASTER_ADDR, MASTER_PORT) and a timeout, its launch
@@ -240,6 +246,7 @@ PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12, "int8": 1979e12}
 
 LARGE_V2_BATCH = 32
+DISTILL_TOKENS = 448  # distillation's label length: decode_train's queries
 # the prefilter phase: configs/prefilter_base_0.4.args validates at batch 64
 # with a 448-token budget; 8 lectures of 260 s cut into 72 segments (one
 # full batch and one of 8 with 56 zero-audio pad rows)
@@ -308,6 +315,7 @@ def kernel_counters():
     return {"mel": mel_kernel.log10_mel_spectrum,
             "encoder_attention": attention.encoder_attention,
             "encoder_attention_bwd": attention.encoder_attention_backward,
+            "decoder_attention": attention.decoder_attention,
             "cross_decode_attention": decode_attention.cross_attention,
             "self_decode_attention": decode_attention.self_attention,
             "layer_norm": layer_norm.layer_norm}
@@ -540,6 +548,32 @@ def phase_build():
         if not all(counts.values()):
             raise AssertionError(f"{name}: an expected instruction is missing from the built "
                                  f"code: {counts}")
+        if name == "encoder_attention":
+            # the forward's bf16 template: the encoder's and the decoder's
+            # cross-attention (CAUSAL false) and the decoder's causal one
+            per_fn = sass_by_function(sass, ops)
+            inst = {"causal" if "ILb1E" in fn else "non-causal": c
+                    for fn, c in per_fn.items() if "attn_bf16" in fn}
+            log(f"[sass {name}] by instantiation {json.dumps(inst)}")
+            if set(inst) != {"causal", "non-causal"} or \
+                    not all(all(c.values()) for c in inst.values()):
+                raise AssertionError(f"{name}: a bf16 instantiation lacks HGMMA or UTMALDG or "
+                                     f"is missing: {inst}")
+
+
+def sass_by_function(sass: str, ops) -> dict:
+    """Counts of the instructions ``ops`` in each function of a
+    ``cuobjdump -sass`` listing, by mangled name."""
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = dict.fromkeys(ops, 0)
+        elif fn is not None:
+            for op in ops:
+                counts[fn][op] += op in line
+    return counts
 
 
 DECODE_SRC = "taiwan_whisper_tpu_torch/csrc/decode_attention.cu"
@@ -958,6 +992,56 @@ def phase_kernels(torch, entries: dict, checks: list, case_rows: list, only=None
            bound_ms(4 * AB * T * AH * D * 4, 4 * AB * AH * T * T * D, "fp32"), None)
     del q, k, v
 
+    # 2f-2g. the decoder attention of distillation's teacher (decode_train
+    # under no_grad), bf16 at batch 32 x 20 heads over U = 448 tokens:
+    # causal self-attention [32, 448, 20, 64] and cross-attention of those
+    # queries over [32, 1500, 20, 64]. Cross, as the encoder's row 2: unit
+    # inputs, a diffuse average over 1500 keys (|out| < 1), tolerance 8e-3;
+    # peaked (q x 4, v / 4), tolerance 2e-2. Causal rows are short at the
+    # top (row i averages i + 1 keys: row 0 is v[0] itself), so they are
+    # peaked by construction: v / 4 keeps |out| within ~1.3 as the
+    # encoder's peaked case does, and both causal cases (unit q, q x 4)
+    # take its tolerance, 2e-2. Bounds count the work the mask keeps
+    # (S(S+1)/2 query-key pairs), q/k/v read once and out written once.
+    dec_rep = "taiwan_whisper_tpu/models/whisper.py::_attention (XLA einsums; no Pallas kernel)"
+    U = DISTILL_TOKENS
+    q = torch.randn((B, U, H, D), generator=g, device=dev).to(bf16)
+    ks, vs = (torch.randn((B, U, H, D), generator=g, device=dev).to(bf16) for _ in range(2))
+    kc, vc = (torch.randn((B, T, H, D), generator=g, device=dev).to(bf16) for _ in range(2))
+    vs4, vc4 = (vs.float() / 4).to(bf16), (vc.float() / 4).to(bf16)  # exact in bf16
+    q4 = (q.float() * 4).to(bf16)
+    tril = torch.tril(torch.ones(U, U, dtype=torch.bool, device=dev))[None, None]
+    causal_bound = bound_ms(4 * B * U * H * D * 2, 4 * B * H * D * U * (U + 1) // 2, "bf16")
+    cross_bound_ms = bound_ms((2 * B * U * H * D + 2 * B * T * H * D) * 2, 4 * B * H * U * T * D,
+                              "bf16")
+    for tag, qq, kk, vv, causal, tol, bnd in (
+            ("causal", q, ks, vs4, True, 2e-2, causal_bound),
+            ("causal,peaked", q4, ks, vs4, True, 2e-2, causal_bound),
+            ("cross", q, kc, vc, False, 8e-3, cross_bound_ms),
+            ("cross,peaked", q4, kc, vc4, False, 2e-2, cross_bound_ms)):
+        mask = tril if causal else None
+        qt, kt, vt = (x.transpose(1, 2) for x in (qq, kk, vv))
+        key = f"decoder_attention[bf16,{tag}]"
+
+        def kernel(qq=qq, kk=kk, vv=vv, causal=causal):
+            return EA.decoder_attention(qq, kk, vv, causal=causal)
+
+        def sdpa(qt=qt, kt=kt, vt=vt, causal=causal):
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+
+        row = record(key, "decoder_attention", enc_src, dec_rep, kernel(),
+                     EA.attention_plain(qq, kk, vv, mask), tol,
+                     time_ms(kernel, torch, flush=flush),
+                     time_ms(lambda: EA.attention_plain(qq, kk, vv, mask), torch, iters=3,
+                             flush=flush),
+                     bnd, time_ms(sdpa, torch, flush=flush))
+        if tag == "cross":
+            entries["decoder_attention"] = row
+        if "peaked" not in tag:
+            device_times(key, kernel, sdpa, torch, checks)
+        del qt, kt, vt
+    del q, q4, ks, vs, kc, vc, vs4, vc4, tril
+
     # 3. cross attention over one layer's time-minor K/V [B, H, 64, 1500]
     # in row-padded storage (as the model keeps it), 1 query row (decode
     # step) and 3 (prefill): bf16 q with bf16/int8/fp8 storage at the label
@@ -1278,6 +1362,7 @@ def attention_backward_cases(torch, entries, checks, record, g, flush):
             case(key, q, k, v, dout, 1e-5, None, "fp32")
         del q, k, v, dout
     attention_edge_cases(torch, checks, g, dev)
+    decoder_attention_edge_cases(torch, checks, g, dev)
 
 
 def attention_edge_cases(torch, checks, g, dev):
@@ -1330,6 +1415,53 @@ def attention_edge_cases(torch, checks, g, dev):
         f"{json.dumps(expected)}")
     if launches != expected:
         raise AssertionError(f"edge-case launch counts {launches} != expected {expected}")
+
+
+def decoder_attention_edge_cases(torch, checks, g, dev):
+    """The decoder attention kernel away from the distillation shapes, under
+    the rules of its main cases (causal on v / 4 at 2e-2, cross on unit
+    inputs at 8e-3): causal over S = 300 (a partial diagonal tile of 44
+    rows) at B = 1 and over S = 1 (one query, one key), cross with one
+    query row over 1500 keys, with Sq > Sk (200 queries, 77 keys: one
+    ragged key tile), and cross on q, k and v that are strided views of
+    [B, S, 3, H, 64] and [B, T, 2, H, 64] buffers. The launch counters are
+    zeroed first and must count exactly these launches."""
+    from taiwan_whisper_tpu_torch.ops import attention as EA
+
+    bf = torch.bfloat16
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(bf)
+
+    qkv = rand(2, 448, 3, 8, 64)
+    kv = rand(2, 1500, 2, 8, 64)
+    cases = {"causal,B=1,S=300": (rand(1, 300, 2, 64), rand(1, 300, 2, 64),
+                                  rand(1, 300, 2, 64, scale=0.25), True),
+             "causal,S=1": (rand(2, 1, 4, 64), rand(2, 1, 4, 64),
+                            rand(2, 1, 4, 64, scale=0.25), True),
+             "cross,Sq=1": (rand(2, 1, 4, 64), rand(2, 1500, 4, 64), rand(2, 1500, 4, 64), False),
+             "cross,Sq=200,Sk=77": (rand(3, 200, 4, 64), rand(3, 77, 4, 64), rand(3, 77, 4, 64),
+                                    False),
+             "cross,views": (qkv[:, :, 0], kv[:, :, 0], kv[:, :, 1], False)}
+    zero_counters()
+    for key, (q, k, v, causal) in cases.items():
+        s = q.shape[1]
+        mask = (torch.tril(torch.ones(s, s, dtype=torch.bool, device=dev))[None, None]
+                if causal else None)
+        err, tol = max_abs(EA.decoder_attention(q, k, v, causal=causal),
+                           EA.attention_plain(q, k, v, mask)), 2e-2 if causal else 8e-3
+        log(f"[kernel] decoder_attention edge {key} q {tuple(q.shape)} k {tuple(k.shape)} "
+            f"strides {q.stride()}: err {err:.3g} (tol {tol:g})")
+        checks.append(dict(check=f"decoder_attention_edge[{key}]", max_abs_err=err,
+                           tolerance=tol))
+        if not err <= tol:
+            raise AssertionError(f"decoder attention edge case {key}: err {err:.3g} > {tol:g}")
+    launches = read_counters()
+    expected = dict({k: 0 for k in launches}, decoder_attention=len(cases))
+    log(f"[kernel] decoder_attention edge launches {json.dumps(launches)} expected "
+        f"{json.dumps(expected)}")
+    if launches != expected:
+        raise AssertionError(f"decoder edge-case launch counts {launches} != expected {expected}")
 
 
 def layer_norm_cases(torch, entries, checks, record, g, flush):
@@ -1467,7 +1599,7 @@ def label_launches(cfg, batches: int, tokens: int = MAX_DECODE_TOKENS) -> dict:
     prefilter's): random weights never emit eot, so every batch runs the
     whole token budget."""
     return {"mel": batches, "encoder_attention": batches * cfg.encoder_layers,
-            "encoder_attention_bwd": 0,
+            "encoder_attention_bwd": 0, "decoder_attention": 0,
             "cross_decode_attention": batches * cfg.decoder_layers * (1 + tokens),
             "self_decode_attention": batches * cfg.decoder_layers * tokens,
             "layer_norm": 0}
@@ -2374,7 +2506,9 @@ def phase_train(torch, entries: dict, results: dict, model_dir: str):
                    "--language", "zh", "--tokenizer_dir", tok_dir]
 
         def distill_expected(steps):
-            return dict(none, mel=steps, encoder_attention=cfg.encoder_layers * steps)
+            # the teacher's causal and cross attention, each layer and step
+            return dict(none, mel=steps, encoder_attention=cfg.encoder_layers * steps,
+                        decoder_attention=2 * cfg.decoder_layers * steps)
 
         res = _train_run(torch, entries, results, "distill", distill,
                          os.path.join(tmp, "distill"), DISTILL_STEPS, LARGE_V2_BATCH,
@@ -2666,9 +2800,13 @@ def phase_distributed(torch, entries: dict, results: dict, model_dir: str):
             # mel and encoder: each train step, the eval batch and the
             # generation eval's batch; the decoder's cross and self kernels
             # in the generation eval (prefill: cross only; a trained
-            # student may stop early, at a multiple of 8 steps)
+            # student may stop early, at a multiple of 8 steps); the
+            # decoder attention kernel: the teacher's 2 a layer each train
+            # step, and teacher's and student's in the loss-only eval batch
             n = DIST_STEPS + 2
+            dec = 2 * cfg.decoder_layers * DIST_STEPS + 2 * (cfg.decoder_layers + student_layers)
             if (launches["mel"] != n or launches["encoder_attention"] != n * cfg.encoder_layers
+                    or launches["decoder_attention"] != dec
                     or launches["self_decode_attention"] <= 0
                     or launches["cross_decode_attention"]
                     != launches["self_decode_attention"] + student_layers):
@@ -3201,7 +3339,8 @@ def phase_sweep(torch, entries: dict, results: dict, model_dir: str):
                     for d in dirs]
         none = {k: 0 for k in kernel_counters()}
         expected = dict(none, mel=len(SWEEP_LRS) * SWEEP_STEPS,
-                        encoder_attention=len(SWEEP_LRS) * SWEEP_STEPS * cfg.encoder_layers)
+                        encoder_attention=len(SWEEP_LRS) * SWEEP_STEPS * cfg.encoder_layers,
+                        decoder_attention=len(SWEEP_LRS) * SWEEP_STEPS * 2 * cfg.decoder_layers)
         for r, run in zip(records, runs):
             log(f"[sweep] run {r['run']} lr {r['params']['learning_rate']}: "
                 f"{r.get('error') or 'loss %.5f' % r['metric']}, wall {run['wall_s']:.1f} s, "
@@ -3331,6 +3470,7 @@ def phase_agree(torch, entries: dict, results: dict):
     done = max((e[0] if len(e) else AGREE_TOKENS) for e in eot_at)
     steps = min(AGREE_TOKENS, -(-(done + 1) // 8) * 8)
     expected = {"mel": 1, "encoder_attention": cfg.encoder_layers, "encoder_attention_bwd": 0,
+                "decoder_attention": 0,
                 "cross_decode_attention": cfg.decoder_layers * (1 + steps),
                 "self_decode_attention": cfg.decoder_layers * steps, "layer_norm": 0}
     log(f"[agree] launches {json.dumps(launches)} expected {json.dumps(expected)}")

@@ -1,23 +1,32 @@
-// Encoder self-attention forward (non-causal MHA) for Hopper (sm_90a).
+// Full-sequence attention forward for Hopper (sm_90a): the encoder's
+// self-attention and the teacher-forcing decoder's causal self-attention and
+// cross-attention.
 //
 // Replaces the TPU kernels taiwan_whisper_tpu/ops/attention.py::
 // encoder_attention (_attn_kernel) and encoder_attention_flash (jax's TPU
 // flash kernel, the route S=1500, Dh=64 takes): softmax(q k^T * scale) v
-// with fp32 softmax statistics, over q/k/v laid out [B, S, H, Dh].
+// with fp32 softmax statistics, over q/k/v laid out [B, S, H, Dh]. The
+// decoder's entry (twt_decoder_attention) replaces no Pallas kernel: it
+// replaces the einsum attention that the JAX model's
+// taiwan_whisper_tpu/models/whisper.py::_attention leaves to XLA, which
+// decode_train runs over the whole label sequence (448 queries, causal,
+// against 448 keys; and against the encoder's 1500 positions).
 //
-// Bound: operations. 4*S^2*Dh flop per (b, h): 368.6 GFLOP at large-v2,
+// Bound: operations. 4*Sq*Sk*Dh flop per (b, h): 368.6 GFLOP at large-v2,
 // batch 32 against ~25 MB of q/k/v/out, far above the card's
-// flop-per-byte ridge, so the [S, S] scores must never reach device memory.
-// At Dh = 64 the softmax's exponentials cost the SM as many cycles as the
-// products (16 exp2 per clock against 4096 bf16 flop per clock), so the
-// products have to run on wgmma and overlap the softmax of another
-// warpgroup.
+// flop-per-byte ridge, so the [Sq, Sk] scores must never reach device
+// memory. A distillation step's 32 teacher layers at batch 32 need ~4.05
+// TFLOP of decoder attention (cross 110 GFLOP a layer, causal self 16.4,
+// the half the mask keeps). At Dh = 64 the softmax's exponentials cost the
+// SM as many cycles as the products (16 exp2 per clock against 4096 bf16
+// flop per clock), so the products have to run on wgmma and overlap the
+// softmax of another warpgroup.
 //
 // Design (bf16), FlashAttention-3's forward: one block per (b, h,
 // 128-query tile), 12 x B*H blocks at S = 1500 (the last tile holds 92
 // rows), three warpgroups (hopper_attention.cuh):
 // * a producer warp TMA-loads the q tile once and K/V tiles of 128 keys
-//   into a ring of FWD_STAGES stages (128-byte swizzle, rows past S
+//   into a ring of FWD_STAGES stages (128-byte swizzle, rows past Sq or Sk
 //   zero-filled), each stage completed by bytes on its `full` mbarrier;
 // * two consumer warpgroups of 64 query rows each compute S = q K^T as
 //   wgmma m64n128k16 (both operands from shared memory, K-major), the
@@ -31,17 +40,27 @@
 //   own P V, and the two warpgroups take turns to issue (ping-pong on
 //   named barriers), so one's softmax overlaps the other's products.
 // setmaxnreg moves registers from the producer (24) to the consumers
-// (240). The output and the LSE are stored from registers, rows past S
+// (240). The output and the LSE are stored from registers, rows past Sq
 // skipped; the launch that writes the LSE runs the same code, so its
 // output equals the no-LSE launch's bit for bit.
 //
-// fp32 variant: a plain SIMT flash loop (one thread per query row) so the
-// fp32 policy runs on the card too; it serves parity checks, not speed.
+// The query and key lengths are separate (Sq, Sk), each with its ragged
+// edge: decoder cross-attention is 3.5 query tiles (448) against 11.7 key
+// tiles (1500). CAUSAL (a template flag; needs Sq == Sk) walks only the
+// key tiles at or below a query tile's diagonal, skipping those above it
+// (10 of 16 tiles at Sq 448), and masks keys past each row inside the
+// diagonal tile to -inf before the running max; every row keeps key 0, so
+// none is fully masked. Query tiles are taken longest walk first. The
+// encoder's launches are the non-causal instantiation with Sq == Sk.
 //
-// Both variants optionally write the per-row log-sum-exp of the scaled
-// scores (natural log, fp32 [B, H, S]) that the backward
+// fp32 variant: a plain SIMT flash loop (one thread per query row) so the
+// fp32 policy runs the encoder on the card too; it serves parity checks,
+// not speed, and takes neither CAUSAL nor Sq != Sk.
+//
+// Both encoder variants optionally write the per-row log-sum-exp of the
+// scaled scores (natural log, fp32 [B, H, S]) that the backward
 // (encoder_attention_bwd.cu) recomputes the probabilities from; a null
-// pointer skips it (inference and the frozen encoder).
+// pointer skips it (inference, the frozen encoder, the decoder).
 
 #include <math.h>
 
@@ -57,6 +76,7 @@ constexpr int FWD_BQ = 128;     // query rows per block: two consumer warpgroups
 constexpr int FWD_BK = 128;     // keys per K/V tile
 constexpr int FWD_STAGES = 4;   // K/V ring depth
 constexpr int TILE_BYTES = FWD_BK * D * 2;  // one q, K or V tile: 16 KB
+static_assert(FWD_BQ == FWD_BK, "the causal walk ends at the key tile of the query tile's index");
 
 struct FwdSmem {
   __nv_bfloat16 q[FWD_BQ * D];
@@ -69,18 +89,22 @@ constexpr int FWD_SMEM = sizeof(FwdSmem) + 1024;  // + alignment of the tiles to
 // Online softmax of one [64 x 128] score tile in exp2 units, rows r and
 // r + 8 of this thread: updates the running max m (scaled) and sum l,
 // overwrites the scores with P and returns the factors the output
-// accumulator is rescaled by. MASK: keys at or past S (the ragged last
-// tile) get P = 0.
-template <bool MASK>
+// accumulator is rescaled by. MASK: keys at or past Sk (the ragged last
+// tile) get P = 0, and with CAUSAL also keys past the thread's rows (row,
+// row + 8; the diagonal tile).
+template <bool MASK, bool CAUSAL>
 __device__ __forceinline__ void online_softmax(float (&sc)[64], float& m0, float& m1, float& l0,
                                                float& l1, float& al0, float& al1, int key0,
-                                               int S, float scale_log2) {
+                                               int Sk, int row, float scale_log2) {
   if (MASK) {
 #pragma unroll
     for (int n = 0; n < 16; ++n)
 #pragma unroll
-      for (int e = 0; e < 2; ++e)
-        if (key0 + 8 * n + e >= S) sc[4 * n + e] = sc[4 * n + 2 + e] = -INFINITY;
+      for (int e = 0; e < 2; ++e) {
+        const int key = key0 + 8 * n + e;
+        if (key >= Sk || (CAUSAL && key > row)) sc[4 * n + e] = -INFINITY;
+        if (key >= Sk || (CAUSAL && key > row + 8)) sc[4 * n + 2 + e] = -INFINITY;
+      }
   }
   float mx0 = sc[0], mx1 = sc[2];
 #pragma unroll
@@ -113,14 +137,18 @@ __device__ __forceinline__ void online_softmax(float (&sc)[64], float& m0, float
   l1 = l1 * al1 + s1;
 }
 
+template <bool CAUSAL>
 __global__ void __launch_bounds__(384, 1)
-enc_attn_bf16(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
-              const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o,
-              Strides os, float* __restrict__ lse, int S, int H, float scale_log2) {
+attn_bf16(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+          const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o, Strides os,
+          float* __restrict__ lse, int Sq, int Sk, int H, float scale_log2) {
   extern __shared__ uint8_t smem_raw[];
   FwdSmem& sm = *reinterpret_cast<FwdSmem*>(hopper::align_1024(smem_raw));
-  const int b = blockIdx.y / H, h = blockIdx.y % H, q0 = blockIdx.x * FWD_BQ;
-  const int n_tiles = (S + FWD_BK - 1) / FWD_BK;
+  // causal: the last query tile, with the longest walk, first
+  const int q_tile = CAUSAL ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int b = blockIdx.y / H, h = blockIdx.y % H, q0 = q_tile * FWD_BQ;
+  // causal (FWD_BQ == FWD_BK, Sq == Sk): key tiles 0 .. the diagonal one
+  const int n_tiles = CAUSAL ? q_tile + 1 : (Sk + FWD_BK - 1) / FWD_BK;
   if (threadIdx.x == 0) {
     hopper::mbar_init(&sm.q_full, 1);
     for (int s = 0; s < FWD_STAGES; ++s) {
@@ -149,7 +177,8 @@ enc_attn_bf16(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ 
     const int cw = threadIdx.x / 128 - 1;  // consumer warpgroup 0 or 1
     const int t = threadIdx.x & 127, lane = t & 31, c2 = 2 * (lane & 3);
     const uint32_t q_addr = hopper::smem_u32(sm.q) + cw * 64 * hopper::ROW_BYTES;
-    const bool ragged = S % FWD_BK != 0;
+    const bool masked_last = CAUSAL || Sk % FWD_BK != 0;
+    const int row = q0 + cw * 64 + (t >> 5) * 16 + (lane >> 2);  // and row + 8
     float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;  // rows r and r + 8
     float al0, al1;
     float sc[64], oacc[32];
@@ -175,10 +204,11 @@ enc_attn_bf16(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ 
       hopper::wgmma_commit();
     };
     auto softmax = [&](int j) {
-      if (ragged && j == n_tiles - 1)
-        online_softmax<true>(sc, m0, m1, l0, l1, al0, al1, j * FWD_BK + c2, S, scale_log2);
+      if (masked_last && j == n_tiles - 1)
+        online_softmax<true, CAUSAL>(sc, m0, m1, l0, l1, al0, al1, j * FWD_BK + c2, Sk, row,
+                                     scale_log2);
       else
-        online_softmax<false>(sc, m0, m1, l0, l1, al0, al1, 0, S, scale_log2);
+        online_softmax<false, CAUSAL>(sc, m0, m1, l0, l1, al0, al1, 0, Sk, row, scale_log2);
     };
 
     const hopper::PingPong turns(cw, n_tiles);
@@ -230,14 +260,13 @@ enc_attn_bf16(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ 
       l0 += __shfl_xor_sync(0xffffffffu, l0, off);
       l1 += __shfl_xor_sync(0xffffffffu, l1, off);
     }
-    const int row0 = q0 + cw * 64;
     if (lse != nullptr && (lane & 3) == 0) {  // row max and sum are in log2 units
-      const int r = row0 + (t >> 5) * 16 + (lane >> 2);
-      float* lb = lse + (long long)blockIdx.y * S;
-      if (r < S) lb[r] = (m0 + log2f(l0)) * LN2;
-      if (r + 8 < S) lb[r + 8] = (m1 + log2f(l1)) * LN2;
+      float* lb = lse + (long long)blockIdx.y * Sq;
+      if (row < Sq) lb[row] = (m0 + log2f(l0)) * LN2;
+      if (row + 8 < Sq) lb[row + 8] = (m1 + log2f(l1)) * LN2;
     }
-    hopper::store_rows(o + b * os.b + h * os.h, os.s, row0, S, oacc, 1.f / l0, 1.f / l1);
+    hopper::store_rows(o + b * os.b + h * os.h, os.s, q0 + cw * 64, Sq, oacc, 1.f / l0,
+                       1.f / l1);
   }
 }
 
@@ -303,6 +332,30 @@ enc_attn_f32(const float* __restrict__ q, Strides qs,
   }
 }
 
+// The bf16 kernel over q [B, Sq, H, 64] and k/v [B, Sk, H, 64] from the
+// wrappers' tensor-map parameters (maps[0..2]). Each instantiation sets its
+// own dynamic shared-memory limit once. Returns a cudaError_t code.
+template <bool CAUSAL>
+int launch_bf16(int B, int Sq, int Sk, int H, const void* q, const void* k, const void* v,
+                void* o, Strides os, float* lse, const hopper::MapParams* maps,
+                float scale_log2, cudaStream_t st) {
+  if (maps == nullptr || (CAUSAL && Sq != Sk)) return (int)cudaErrorInvalidValue;
+  CUtensorMap qm, km, vm;
+  int err = hopper::make_map(&qm, q, maps[0], B, Sq, H, FWD_BQ);
+  if (!err) err = hopper::make_map(&km, k, maps[1], B, Sk, H, FWD_BK);
+  if (!err) err = hopper::make_map(&vm, v, maps[2], B, Sk, H, FWD_BK);
+  static const int smem = (int)cudaFuncSetAttribute(
+      attn_bf16<CAUSAL>, cudaFuncAttributeMaxDynamicSharedMemorySize, FWD_SMEM);
+  if (!err) err = smem;
+  if (err) return err;
+  dim3 grid((Sq + FWD_BQ - 1) / FWD_BQ, B * H);
+  attn_bf16<CAUSAL><<<grid, 384, FWD_SMEM, st>>>(qm, km, vm, (__nv_bfloat16*)o, os, lse, Sq, Sk,
+                                                 H, scale_log2);
+  return (int)cudaSuccess;
+}
+
+constexpr float LOG2E = 1.4426950408889634f;
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Strides are in elements; the head dim
@@ -318,28 +371,35 @@ extern "C" int twt_encoder_attention(
     void* o, long long osb, long long oss, long long osh,
     float* lse, const hopper::MapParams* maps, float scale, void* stream) {
   const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh}, os{osb, oss, osh};
-  const float scale_log2 = scale * 1.4426950408889634f;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 1) {
-    if (maps == nullptr) return (int)cudaErrorInvalidValue;
-    CUtensorMap qm, km, vm;
-    int err = hopper::make_map(&qm, q, maps[0], B, S, H, FWD_BQ);
-    if (!err) err = hopper::make_map(&km, k, maps[1], B, S, H, FWD_BK);
-    if (!err) err = hopper::make_map(&vm, v, maps[2], B, S, H, FWD_BK);
-    static const int smem = (int)cudaFuncSetAttribute(
-        enc_attn_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize, FWD_SMEM);
-    if (!err) err = smem;
+    const int err = launch_bf16<false>(B, S, S, H, q, k, v, o, os, lse, maps, scale * LOG2E, st);
     if (err) return err;
-    dim3 grid((S + FWD_BQ - 1) / FWD_BQ, B * H);
-    enc_attn_bf16<<<grid, 384, FWD_SMEM, st>>>(qm, km, vm, (__nv_bfloat16*)o, os, lse, S, H,
-                                               scale_log2);
   } else if (dtype == 0) {
     dim3 grid((S + F_ROWS - 1) / F_ROWS, B * H);
     enc_attn_f32<<<grid, F_ROWS, 0, st>>>(
         (const float*)q, qs, (const float*)k, ks, (const float*)v, vs,
-        (float*)o, os, lse, S, H, scale_log2);
+        (float*)o, os, lse, S, H, scale * LOG2E);
   } else {
     return (int)cudaErrorInvalidValue;
   }
+  return (int)cudaGetLastError();
+}
+
+// The decoder's full-sequence attention, bf16 only: q [B, Sq, H, 64] and
+// k/v [B, Sk, H, 64], read through their tensor maps (maps as above), out
+// [B, Sq, H, 64] through its strides; causal (0 or 1) needs Sq == Sk. No
+// LSE.
+extern "C" int twt_decoder_attention(
+    int B, int Sq, int Sk, int H, const void* q, const void* k, const void* v,
+    void* o, long long osb, long long oss, long long osh,
+    const hopper::MapParams* maps, float scale, int causal, void* stream) {
+  const Strides os{osb, oss, osh};
+  cudaStream_t st = (cudaStream_t)stream;
+  const int err = causal ? launch_bf16<true>(B, Sq, Sk, H, q, k, v, o, os, nullptr, maps,
+                                             scale * LOG2E, st)
+                         : launch_bf16<false>(B, Sq, Sk, H, q, k, v, o, os, nullptr, maps,
+                                              scale * LOG2E, st);
+  if (err) return err;
   return (int)cudaGetLastError();
 }

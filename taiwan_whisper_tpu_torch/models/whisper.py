@@ -16,7 +16,11 @@ tensors encoder self-attention (forward, and backward when the encoder
 trains), cross-attention (decode steps and prefill) and cached
 self-attention go through the port's CUDA kernels; on CPU tensors through
 their plain versions. ``decode_train``'s attention is plain ``torch``
-matmuls, as the JAX package leaves it to XLA.
+matmuls, as the JAX package leaves it to XLA, except where the decoder
+runs on a CUDA bf16 tensor with no gradient recorded and no
+``attention_mask`` (the frozen teacher of distillation, evaluation
+losses): there its causal self-attention and its cross-attention take the
+hand-written kernel of ``ops/attention.py::decoder_attention``.
 
 Differences from the JAX package, by design:
 * the KV cache is updated IN PLACE: each decode step writes its k/v at
@@ -56,7 +60,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..ops.attention import attention_plain, encoder_attention
+from ..ops.attention import attention_plain, decoder_attention, encoder_attention
 from ..ops.decode_attention import (cross_attention, cross_attention_int8_dots, pack_int4,
                                     self_attention, time_minor_zeros)
 from ..parallel import mesh
@@ -247,23 +251,35 @@ def encode(params: Params, mel: torch.Tensor, config: WhisperConfig,
     return _layer_norm(p["ln_post"], x).to(dtype)
 
 
+def _decoder_kernel_applies(q: torch.Tensor, plain_tril: bool) -> bool:
+    """Whether ``_decoder_train_layer`` takes ``decoder_attention``: q a
+    CUDA bf16 tensor, no gradient recorded, and the self-attention mask the
+    plain causal tril (``decode_train`` got no ``attention_mask``)."""
+    return (q.device.type == "cuda" and q.dtype == torch.bfloat16 and plain_tril
+            and not torch.is_grad_enabled())
+
+
 def _decoder_train_layer(lp: Params, x: torch.Tensor, enc: torch.Tensor,
-                         causal: torch.Tensor, head_dim: int) -> torch.Tensor:
+                         causal: torch.Tensor, head_dim: int, plain_tril: bool) -> torch.Tensor:
     """One decoder layer over the whole sequence; ``enc`` has been through
-    ``_to_model_group`` already when the layer is split."""
+    ``_to_model_group`` already when the layer is split. ``plain_tril``:
+    ``causal`` is the plain tril, so the kernel may stand in for it."""
     split = _is_split(lp, x.shape[-1])
     h = _to_model_group(_layer_norm(lp["self_attn_ln"], x), split)
     a = lp["self_attn"]
     q = _split_heads(_dense(a["q"], h), head_dim)
     k = _split_heads(_dense(a["k"], h), head_dim)
     v = _split_heads(_dense(a["v"], h), head_dim)
-    x = x + _row_dense(a["out"], _merge_heads(attention_plain(q, k, v, causal)), split)
+    kernel = _decoder_kernel_applies(q, plain_tril)
+    att = decoder_attention(q, k, v, causal=True) if kernel else attention_plain(q, k, v, causal)
+    x = x + _row_dense(a["out"], _merge_heads(att), split)
     h = _to_model_group(_layer_norm(lp["cross_attn_ln"], x), split)
     c = lp["cross_attn"]
     q = _split_heads(_dense(c["q"], h), head_dim)
     k = _split_heads(_dense(c["k"], enc), head_dim)
     v = _split_heads(_dense(c["v"], enc), head_dim)
-    x = x + _row_dense(c["out"], _merge_heads(attention_plain(q, k, v)), split)
+    att = decoder_attention(q, k, v, causal=False) if kernel else attention_plain(q, k, v)
+    x = x + _row_dense(c["out"], _merge_heads(att), split)
     return x + _mlp(lp, _layer_norm(lp["final_ln"], x), split)
 
 
@@ -290,7 +306,7 @@ def decode_train(params: Params, enc_out: torch.Tensor, tokens: torch.Tensor,
     hidden = []
     for lp in p["layers"]:
         x = _run_layer(_decoder_train_layer, lp, x, enc, causal,
-                       _head_dim(config, decoder=True), remat=remat)
+                       _head_dim(config, decoder=True), attention_mask is None, remat=remat)
         if output_hidden_states:
             hidden.append(x)
     logits = _lm_head(p["embed_tokens"], _layer_norm(p["ln_post"], x))

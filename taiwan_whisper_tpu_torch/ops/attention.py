@@ -1,14 +1,24 @@
-"""Encoder self-attention: the CUDA flash kernels and the plain version.
+"""Full-sequence attention: the CUDA flash kernels and the plain version,
+for the encoder's self-attention and the teacher-forcing decoder's.
 
 Replaces taiwan_whisper_tpu/ops/attention.py::encoder_attention and its
 flash route, encoder_attention_flash, forward and backward (its custom VJP).
+``decoder_attention`` replaces no Pallas kernel: it replaces the einsum
+attention that the JAX model's ``_attention`` leaves to XLA in
+``decode_train`` (causal self-attention over the labels, cross-attention
+over the encoder's positions), where the decoder runs without a gradient
+(the frozen teacher of distillation, evaluation losses).
 
 * Forward (csrc/encoder_attention.cu): FlashAttention-3's design on
   Hopper: a producer warp TMA-loads q once and K/V tiles of 128 keys into
   a ring of shared-memory stages; two consumer warpgroups run q K^T and
   P V as wgmma (P from registers, V through the descriptor's transpose
   bit) with the online softmax in fp32 registers. Bound by operations
-  (368.6 GFLOP per large-v2 batch of 32). It optionally writes the per-row
+  (368.6 GFLOP per large-v2 encoder batch of 32; ~4.05 TFLOP of teacher
+  decoder attention per distillation step at batch 32 and 448 tokens).
+  The query and key lengths may differ (cross-attention: 448 against
+  1500); the causal instantiation walks only the key tiles at or below
+  each query tile's diagonal. It optionally writes the per-row
   log-sum-exp (LSE) the backward needs.
 * Backward (csrc/encoder_attention_bwd.cu): without atomics, so gradients
   are deterministic: D = rowsum(dO * O), then a dK/dV kernel per 128-key
@@ -17,9 +27,9 @@ flash route, encoder_attention_flash, forward and backward (its custom VJP).
   streamed), each recomputing P from q, k and the LSE.
 
 The bf16 kernels read q/k/v/dO through TMA tensor maps encoded per call
-from the parameters ``tma_map_params`` computes here. Both have fp32 SIMT
-variants for the fp32 policy. q/k/v are [B, S, H, Dh] and read through
-their strides.
+from the parameters ``tma_map_params`` computes here. The encoder's have
+fp32 SIMT variants for the fp32 policy; the decoder's route is bf16 only.
+q/k/v are [B, S, H, Dh] and read through their strides.
 
 ``encoder_attention`` launches the forward with no LSE (a null pointer)
 when no gradient is wanted (inference, the frozen encoder); when one is,
@@ -39,7 +49,9 @@ from . import _build
 
 _P, _L, _I = _build.P, _build.L, _build.I
 _SIG = {"twt_encoder_attention": [_I, _I, _I, _I] + [_P, _L, _L, _L] * 4
-        + [_P, _P, _build.F, _P]}
+        + [_P, _P, _build.F, _P],
+        "twt_decoder_attention": [_I, _I, _I, _I, _P, _P, _P, _P, _L, _L, _L, _P, _build.F,
+                                  _I, _P]}
 _SIG_BWD = {"twt_encoder_attention_bwd": [_I, _I, _I, _I] + [_P, _L, _L, _L] * 5
             + [_P, _P] + [_P, _L, _L, _L] * 3 + [_P, _build.F, _P]}
 HEAD_DIM = 64
@@ -218,5 +230,45 @@ def encoder_attention_lse(q, k, v):
     return _forward_kernel(q, k, v, with_lse=True)
 
 
+def _check_decoder(q, k, v, causal: bool):
+    b, sq, h, d = q.shape
+    if (d != HEAD_DIM or k.dim() != 4 or k.shape != v.shape
+            or (k.shape[0], k.shape[2], k.shape[3]) != (b, h, d)):
+        raise ValueError(f"decoder attention takes q [B,Sq,H,64] and k, v [B,Sk,H,64], got "
+                         f"{[tuple(t.shape) for t in (q, k, v)]}")
+    if causal and k.shape[1] != sq:
+        raise ValueError(f"causal decoder attention needs Sq == Sk, got {sq} and {k.shape[1]}")
+
+
+def decoder_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      causal: bool) -> torch.Tensor:
+    """MHA of q [B, Sq, H, 64] over k/v [B, Sk, H, 64] -> [B, Sq, H, 64] in
+    q's dtype, no gradient: ``causal`` (Sq == Sk) lets query i see keys
+    0..i. On CPU tensors the plain version with the tril mask; on CUDA
+    tensors the bf16 kernel (it raises on any other dtype)."""
+    _check_decoder(q, k, v, causal)
+    b, sq, h, d = q.shape
+    if q.device.type == "cpu":
+        mask = (torch.tril(torch.ones(sq, sq, dtype=torch.bool))[None, None]
+                if causal else None)
+        return attention_plain(q, k, v, mask)
+    _build.require_cuda(q, k, v)
+    if any(t.dtype != torch.bfloat16 for t in (q, k, v)):
+        raise ValueError(f"the decoder attention kernel takes bf16, got "
+                         f"{[t.dtype for t in (q, k, v)]}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise ValueError("the decoder attention kernel has no backward: call it without a "
+                         "gradient recorded")
+    out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    lib = _build.load("encoder_attention", _SIG)
+    _build.check(lib.twt_decoder_attention(
+        b, sq, k.shape[1], h, q.data_ptr(), k.data_ptr(), v.data_ptr(), *_ptr_strides(out),
+        tma_map_words(q, k, v), d ** -0.5, int(causal), _build.stream_of(q)),
+        "decoder attention kernel")
+    decoder_attention.launches += 1
+    return out
+
+
 encoder_attention.launches = 0
 encoder_attention_backward.launches = 0
+decoder_attention.launches = 0
