@@ -21,27 +21,49 @@ byte-level tokenizer. Three wrappers stay in place for the run:
 * in a ``--trace 1`` run each step of the ``step`` stretch
   (``trace.steps`` steps from window step ``trace.from``) runs in a
   ``bench:step`` range.
+
+Each window step's start is marked, and so is the window's close: the
+host clock, a CUDA event on the current stream (recorded, and read only
+once the window has closed: nothing waits on it inside), and the running
+totals of the port's spans and of the data wait. ``host.snapshot`` reads
+the CPU time of the process's threads as the window opens and after it
+closes, and a ``card.Sampler`` reads the card's clock, power,
+temperature and throttle reasons every ``CARD_PERIOD_S`` from the
+window's opening. After the window the driver prints what they say
+(``_Steps.window``) as one ``port_bench.train`` JSON line on standard
+error.
 """
 
 from __future__ import annotations
 
+import json
 import os
+import sys
 import time
 
 import torch
 
-from port_bench import harness, synth
+from port_bench import card, harness, host, synth
 from port_bench import weights as W
 from port_bench.reference import train_check
 from port_bench.roofline import whisper_flops as F
 from port_bench.trace import STEP_RANGE
 
 WARM_STEPS = 3
+CARD_PERIOD_S = 0.5  # between two readings of the card (card.Sampler)
 
 
 def _host(t: torch.Tensor) -> torch.Tensor:
     """A host copy: what the benchmark keeps takes no device memory."""
     return t.detach().to("cpu", copy=True)
+
+
+def _spans() -> dict:
+    """The port's span totals so far (``utils/profiling.py::snapshot``):
+    ``{name: (calls, host seconds)}``."""
+    from taiwan_whisper_tpu_torch.utils import profiling
+
+    return profiling.snapshot()["spans"]
 
 
 class WindowClosed(Exception):
@@ -53,6 +75,7 @@ class _Steps:
         self.ctx = ctx
         self.t_start = t_start
         self.tr = ctx.traffic.get("trace", {})
+        self.cuda = ctx.device.type == "cuda"
         self.n = 0
         self.batches = []
         self.losses = []
@@ -60,12 +83,29 @@ class _Steps:
         self.data_wait = 0.0
         self.in_window = False
         self.t0 = self.t1 = 0.0
+        # each window step's start, then the window's close: (host clock,
+        # CUDA event, the port's span totals, data wait so far)
+        self.marks = []
+        self.returns = []  # the host clock as each window step's call returns
+        self.snaps = []  # host.snapshot as the window opens and after it closes
+        self.card = None
         self.setup_s = None
         self.traced = 0
 
     def _sync(self):
-        if self.ctx.device.type == "cuda":
+        if self.cuda:
             torch.cuda.synchronize(self.ctx.device)
+
+    def _mark(self, t: float):
+        ev = None
+        if self.cuda:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+        self.marks.append((t, ev, _spans(), self.data_wait))
+
+    def close(self):
+        if self.card is not None:
+            self.card.close()
 
     def prefetch(self, orig):
         def wrapped(iterable, buffer_size=2):
@@ -78,8 +118,7 @@ class _Steps:
                         batch = next(it)
                     except StopIteration:
                         return
-                    if self.in_window:
-                        self.data_wait += time.perf_counter() - t
+                    self.data_wait += time.perf_counter() - t
                     if len(self.batches) < WARM_STEPS:
                         self.batches.append(batch)
                     yield batch
@@ -97,12 +136,17 @@ class _Steps:
                     self.p0 = {p: _host(t) for p, t in named_leaves(student) if p in train}
                 if self.n == WARM_STEPS + 1:
                     self._sync()
-                    if self.ctx.device.type == "cuda":
+                    if self.cuda:
                         torch.cuda.reset_peak_memory_stats(self.ctx.device)
                     harness.settle(self.ctx.device)
                     self.setup_s = time.time() - self.t_start
+                    self.card = card.Sampler(self.ctx.device, CARD_PERIOD_S)
+                    harness.pin_launcher()  # its thread off the launcher's core
+                    self.snaps.append(host.snapshot())
                     self.in_window = True
                     self.t0 = time.perf_counter()
+                if self.in_window:
+                    self._mark(time.perf_counter())
                 k = self.n - WARM_STEPS  # window step, from 1
                 s = self.ctx.stretch("step")
                 if self.ctx.trace and s.wanted and k >= self.tr.get("from", 4):
@@ -116,6 +160,8 @@ class _Steps:
                         s.stop()
                 else:
                     out = step(student, opt_state, teacher, batch)
+                if self.in_window:
+                    self.returns.append(time.perf_counter())
                 if self.n <= WARM_STEPS:
                     self.losses.append(out[2]["loss"].detach())
                 if self.n == 1:
@@ -125,13 +171,38 @@ class _Steps:
                 if self.in_window and time.perf_counter() - self.t0 >= self.ctx.seconds:
                     if s.active:
                         s.stop()
+                    self._mark(0.0)
                     self._sync()
                     self.t1 = time.perf_counter()
+                    self.marks[-1] = (self.t1,) + self.marks[-1][1:]
+                    self.snaps.append(host.snapshot())
                     self.in_window = False
                     raise WindowClosed
                 return out
             return train_step
         return make
+
+    def window(self) -> dict:
+        """What the marks and the readings say, read once the window has
+        closed: each step's time (between its start's CUDA event and the
+        next one's), the host time of its call and of its upload, the data
+        wait, the host time a step of each of the port's spans, the CPU
+        time of the process's threads (``host.delta``), and the card."""
+        m = self.marks
+        pairs = list(zip(m, m[1:]))
+        up = [1e3 * (b[2].get("train.upload", (0, 0.0))[1] - a[2].get("train.upload", (0, 0.0))[1])
+              for a, b in pairs]
+        out = {"step_ms": [round(a[1].elapsed_time(b[1]), 3) for a, b in pairs]
+               if self.cuda else [],
+               "launch_ms": [round(1e3 * (r - a[0]), 3) for (a, _), r in zip(pairs, self.returns)],
+               "upload_ms": [round(x, 3) for x in up], "data_wait_s": m[-1][3] - m[0][3],
+               "span_ms": {}, "host": host.delta(*self.snaps),
+               "card": self.card.between(self.t0, self.t1)}
+        for name, (calls, secs) in m[-1][2].items():
+            c0, s0 = m[0][2].get(name, (0, 0.0))
+            if calls != c0:
+                out["span_ms"][name] = round(1e3 * (secs - s0) / len(pairs), 3)
+        return out
 
 
 def run(ctx, *, t_start: float) -> dict:
@@ -198,6 +269,8 @@ def run(ctx, *, t_start: float) -> dict:
                               tokenizer_dir=tok_dir, policy=policy, device=dev)
     except WindowClosed:
         pass
+    finally:
+        steps.close()
     if steps.t1 == 0.0:
         raise RuntimeError("the train loop ended before the window closed")
     window_s = steps.t1 - steps.t0
@@ -206,8 +279,10 @@ def run(ctx, *, t_start: float) -> dict:
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
     tokens = tr["max_label_length"] - 1
     flops = samples * F.train_sample_flops(student_cfg, teacher_cfg, tokens=tokens)
-    record = dict(window_s=window_s, data_wait_s=steps.data_wait, peak_bytes=peak,
-                  model_flops=flops, steps=n_window)
+    win = steps.window()
+    print("port_bench.train " + json.dumps(win), file=sys.stderr, flush=True)
+    record = dict(window_s=window_s, data_wait_s=win["data_wait_s"], peak_bytes=peak,
+                  model_flops=flops, steps=n_window, card=win["card"])
     prog = dict(batches=steps.batches, losses=[float(x) for x in steps.losses],
                 mu1=steps.mu1, p0=steps.p0, p3=steps.p3)
     models.clear()
