@@ -2,19 +2,22 @@
 ``pipeline/label.py::label_files``.
 
 Set-up: seeded weights on the device (``weights.py``) through
-``models/params.py::load_hf_state_dict``; a pool of seeded lectures written
-as PCM16 WAV; one warm call of ``label_files`` over one full batch of
-bursts (it loads every kernel and fills the caches).
-The window is one call of ``label_files`` over a corpus of lectures drawn
-from the pool in a seeded order (hard links: a file may repeat, nothing in
-the port caches by content) that holds the traffic file's ``batches``
-whole batches of 30 s chunks (``ctx.batches`` in the readings), as the
-reference's VAD and chunking count them. The work is fixed: the same
-bursts for every run and seed, in a seeded order; sizing it from a timed
-warm batch instead, which read 4.6-6.3 s on one H100 host, put 7-9
-batches in a window and spread the rate. Its rate is the audio sent over
-the call's wall. The reference's VAD, which cuts the corpus to whole
-batches, runs in set-up but is not counted in ``setup_s``.
+``models/params.py::load_hf_state_dict``; a pool of lectures written as
+PCM16 WAV, the same for every seed (``POOL_SEED``); one warm call of
+``label_files`` over one full batch of bursts (it loads every kernel and
+fills the caches).
+The window is one call of ``label_files`` over a corpus of pieces of the
+pool's lectures (hard links: a file may repeat, nothing in the port caches
+by content) that holds the traffic file's ``batches`` whole batches of
+30 s chunks (``ctx.batches`` in the readings), as the reference's VAD and
+chunking count them. The work is fixed: the same pieces, so the same
+audio and the same chunks, for every run and seed, written in a seeded
+order. A pool drawn from the seed chunked differently under the VAD, and
+its corpus of so many chunks held 5,422-5,595 s of audio by seed; sizing
+the window from a timed warm batch, which read 4.6-6.3 s on one H100
+host, put 7-9 batches in it. Both spread the rate. Its rate is the audio
+sent over the call's wall. The reference's VAD, which cuts the corpus to
+whole batches, runs in set-up but is not counted in ``setup_s``.
 
 ``label.decode_audio`` is wrapped for the run: before each batch the
 wrapper takes the fingerprint of every audio row, and it keeps the tokens
@@ -24,8 +27,12 @@ real row's served tokens). In a ``--trace 1`` run it also marks each
 ``models.whisper.decode_step`` as a step and traces two stretches of one
 batch of the window: the ``encode`` stretch (log-mel, encoder, cross-K/V,
 prefill) and the ``loop`` stretch (``trace.loop_steps`` steps of the
-decode loop from ``trace.loop_from``). Each batch's wall goes to standard
-error.
+decode loop from ``trace.loop_from``). A ``decode_step`` captured into a
+CUDA graph (``trace.Graphs``) is marked inside the capture and runs at
+the graph's replays: a replay of a graph that captured k steps counts as
+k steps for the stretches, which start and stop only outside a capture.
+Each batch's wall and the launching thread's CPU seconds in it go to
+standard error, with the audio and the window's wall.
 """
 
 from __future__ import annotations
@@ -41,7 +48,9 @@ from port_bench import weights as W
 from port_bench.reference import audio as RA
 from port_bench.reference import label_check
 from port_bench.roofline import whisper_flops as F
-from port_bench.trace import STEP_RANGE
+from port_bench.trace import STEP_RANGE, graph_id
+
+POOL_SEED = 0  # the lectures' audio: the same for every --seed
 
 
 class _Capture:
@@ -54,8 +63,10 @@ class _Capture:
                                                    ctx.device)
         self.batches = []
         self.walls = []
+        self.cpu = []  # the launching thread's CPU seconds in each batch
         self.recording = False
         self.step_in_batch = 0
+        self.graph_steps = {}  # graph id -> decode steps captured in it
 
     def fingerprint(self, audio: torch.Tensor) -> torch.Tensor:
         return torch.cat([((audio[i:i + 8].double() * 32768.0).round() @ self.w).round().long()
@@ -72,34 +83,64 @@ class _Capture:
                 enc.start()
             if self.recording and self.ctx.device.type == "cuda":
                 harness.pin_launcher()  # threads the port started since
-            t = time.perf_counter()
+            t, c = time.perf_counter(), time.thread_time()
             res = orig(params, audio, prefix, *args, **kwargs)
             for s in (enc, self.ctx.stretch("loop")):
                 if s.active:
                     s.stop()
             if self.recording:
                 self.walls.append(time.perf_counter() - t)
+                self.cpu.append(time.thread_time() - c)
                 self.batches.append(dict(fp=fp, tokens=res.tokens, lengths=res.lengths,
                                          sum_logprobs=res.sum_logprobs))
             return res
         return wrapped
 
+    def _steps_begin(self, k: int):
+        """Before ``k`` decode steps run on the device: the encode stretch
+        ends; the loop stretch starts if its first step is among them."""
+        enc, loop = self.ctx.stretch("encode"), self.ctx.stretch("loop")
+        if enc.active:
+            enc.stop()
+        first = self.tr.get("loop_from", 64)
+        if (self.recording and loop.wanted and len(self.batches) >= self.tr.get("batch", 1)
+                and self.step_in_batch <= first < self.step_in_batch + k):
+            loop.start()
+        self.step_in_batch += k
+        return loop
+
+    def _steps_end(self, loop):
+        if loop.active and (self.step_in_batch
+                            >= self.tr.get("loop_from", 64) + self.tr.get("loop_steps", 16)):
+            loop.stop()
+
     def decode_step(self, orig):
         def wrapped(*args, **kwargs):
-            enc, loop = self.ctx.stretch("encode"), self.ctx.stretch("loop")
-            if enc.active:
-                enc.stop()
-            if (self.recording and loop.wanted and len(self.batches) >= self.tr.get("batch", 1)
-                    and self.step_in_batch == self.tr.get("loop_from", 64)):
-                loop.start()
-            self.step_in_batch += 1
+            cap = self.ctx.capturing()
+            if cap is not None:  # runs at the graph's replays
+                self.graph_steps[cap.gid] = self.graph_steps.get(cap.gid, 0) + 1
+                with torch.profiler.record_function(STEP_RANGE):
+                    return orig(*args, **kwargs)
+            loop = self._steps_begin(1)
             if loop.active:
                 with torch.profiler.record_function(STEP_RANGE):
                     out = orig(*args, **kwargs)
-                if self.step_in_batch >= self.tr.get("loop_from", 64) + self.tr.get("loop_steps", 16):
-                    loop.stop()
+                self._steps_end(loop)
                 return out
             return orig(*args, **kwargs)
+        return wrapped
+
+    def replay(self, orig):
+        """``torch.cuda.CUDAGraph.replay``: a graph that captured decode
+        steps replays them."""
+        def wrapped(graph, *args, **kwargs):
+            k = self.graph_steps.get(graph_id(graph), 0)
+            if not k or self.ctx.capturing() is not None:
+                return orig(graph, *args, **kwargs)
+            loop = self._steps_begin(k)
+            out = orig(graph, *args, **kwargs)
+            self._steps_end(loop)
+            return out
         return wrapped
 
 
@@ -111,27 +152,36 @@ def chunk_starts(lec, chunk_len: int, stride: int, device):
 
 
 def corpus(pool, starts, chunks: int, rng, out_dir: str):
-    """Lectures from the pool in a seeded order (hard links), the last cut
-    in the gap after a burst, so that the corpus gives ``chunks`` chunks
-    (``starts``: each pool lecture's chunk starts): whole batches."""
-    os.makedirs(out_dir, exist_ok=True)
-    paths, held = [], 0
+    """Pieces of the pool's lectures that hold ``chunks`` chunks (whole
+    batches; ``starts``: each pool lecture's chunk starts): whole lectures
+    in the pool's order, the last cut in the gap after a burst. The pieces
+    are the same for every ``rng``; it draws the order they are written in
+    (hard links where whole)."""
+    pieces, held = [], 0
     while held < chunks:
-        for i in rng.permutation(len(pool)):
-            lec, need = pool[int(i)], chunks - held
+        for i, lec in enumerate(pool):
+            need = chunks - held
             if need <= 0:
                 break
-            dst = os.path.join(out_dir, f"lecture{len(os.listdir(out_dir)):04d}.wav")
-            if len(starts[int(i)]) <= need:
-                synth.link_or_copy(lec.path, dst)
-                held += len(starts[int(i)])
+            if len(starts[i]) <= need:
+                pieces.append((i, None))
+                held += len(starts[i])
             else:
                 cuts = [(a[1] + b[0]) // 2 for a, b in zip(lec.bursts, lec.bursts[1:])]
-                fit = [(sum(s < c for s in starts[int(i)]), c) for c in cuts]
+                fit = [(sum(s < c for s in starts[i]), c) for c in cuts]
                 n, cut = max((f for f in fit if 0 < f[0] <= need), default=fit[0])
-                synth.write_wav(dst, lec.pcm[:cut])
+                pieces.append((i, cut))
                 held += n
-            paths.append(dst)
+    os.makedirs(out_dir, exist_ok=True)
+    paths = []
+    for k, j in enumerate(rng.permutation(len(pieces))):
+        i, cut = pieces[int(j)]
+        dst = os.path.join(out_dir, f"lecture{k:04d}.wav")
+        if cut is None:
+            synth.link_or_copy(pool[i].path, dst)
+        else:
+            synth.write_wav(dst, pool[i].pcm[:cut])
+        paths.append(dst)
     return paths
 
 
@@ -155,8 +205,9 @@ def run(ctx, *, t_start: float) -> dict:
     stride = int(chunk_len // 6)
 
     lect = tr["lectures"]
-    pool = synth.lecture_pool(ctx.rng("lectures"), os.path.join(ctx.workdir, "pool"),
-                              lect["seconds"], lect["noise_dbfs"], lect.get("base_s", 300.0))
+    pool = synth.lecture_pool(harness.rng(POOL_SEED, "lectures"),
+                              os.path.join(ctx.workdir, "pool"), lect["seconds"],
+                              lect["noise_dbfs"], lect.get("base_s", 300.0))
 
     def call(paths, out):
         return L.label_files(params, config, tok, paths, os.path.join(ctx.workdir, out), lc,
@@ -166,6 +217,7 @@ def run(ctx, *, t_start: float) -> dict:
     ctx.patch(L, "decode_audio", cap.decode_audio)
     if ctx.trace:
         ctx.patch(M, "decode_step", cap.decode_step)
+        ctx.patch(torch.cuda.CUDAGraph, "replay", cap.replay)
 
     t_ref = time.perf_counter()
     starts = [chunk_starts(lec, chunk_len, stride, dev) for lec in pool]
@@ -191,13 +243,18 @@ def run(ctx, *, t_start: float) -> dict:
     window_s = time.perf_counter() - t0
     cap.recording = False
     peak_window = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
+    # what the caching allocator held at most: the card memory the job takes
+    reserved = torch.cuda.max_memory_reserved(dev) if dev.type == "cuda" else None
 
     batches = [{k: v.cpu().numpy() for k, v in b.items()} for b in cap.batches]
     prefix = tok.sot_sequence(lc.language, lc.task, timestamps=True)
     flops = sum(F.label_row_flops(ctx.config, prefix=len(prefix), tokens=int(n))
                 for b in batches for f, n in zip(b["fp"], b["lengths"]) if f != 0)
     print("[port_bench] batch walls (s): " + " ".join(f"{x:.3f}" for x in cap.walls)
-          + f"; reference VAD in set-up {t_ref:.2f} s", file=sys.stderr)
+          + "; launcher CPU (s): " + " ".join(f"{x:.3f}" for x in cap.cpu)
+          + f"; audio {stats['audio_seconds']:.2f} s in {window_s:.3f} s"
+          + f"; reference VAD in set-up {t_ref:.2f} s"
+          + f"; peak allocated {peak_window} B, reserved {reserved} B", file=sys.stderr)
     record = dict(stats=stats, window_s=window_s, batch_size=lc.batch_size,
                   peak_bytes=peak_window, model_flops=flops)
     del params
@@ -210,5 +267,6 @@ def run(ctx, *, t_start: float) -> dict:
             sample=tr["check"]["sample_rows"], rng=ctx.rng("check"), limits=tr["limits"],
             device=dev, beams=lc.num_beams, control=control)
 
-    return {"e2e": {"audio_s_per_s": stats["audio_seconds"] / window_s, "setup_s": setup_s},
+    held_gb = reserved / 1e9 if reserved else None  # none without a card
+    return {"e2e": {"label_peak_gb": held_gb, "setup_s": setup_s},
             "attempted": stats["chunks"], "record": record, "check": check}

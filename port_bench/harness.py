@@ -144,8 +144,10 @@ def rng(seed: int, stream: str) -> np.random.RandomState:
 
 class Ctx:
     """What a driver gets: the plan, the run's arguments, the device, a
-    work directory (removed after the run), the traced stretch, and
-    ``patch`` for wrapping an attribute of the port for the run's life.
+    work directory (removed after the run), the traced stretch, the CUDA
+    graphs recorded while a run traces (``graphs``, a ``trace.Graphs``
+    once ``trace.watch_graphs`` made it), and ``patch`` for wrapping an
+    attribute of the port for the run's life.
     ``batches``, where given, cuts a window of fixed work to that many
     batches (the readings of ``readings.py``)."""
 
@@ -159,6 +161,7 @@ class Ctx:
         self.workdir = workdir
         self.batches = batches
         self.stretches: Dict[str, Stretch] = {}
+        self.graphs = None
         self._patches: List[tuple] = []
 
     @property
@@ -174,12 +177,18 @@ class Ctx:
         from .trace import Stretch
 
         if name not in self.stretches:
-            self.stretches[name] = Stretch(name, self.workdir, self.device)
+            self.stretches[name] = Stretch(name, self.workdir, self.device, self.graphs)
         return self.stretches[name]
 
     def active_stretch(self):
-        """The stretch being traced now, or None."""
-        return next((s for s in self.stretches.values() if s.active), None)
+        """What a range wrapper adds its bound to (``acc``) now: the CUDA
+        graph capture being recorded (its work runs at its replays), else
+        the stretch being traced, else None."""
+        return self.capturing() or next((s for s in self.stretches.values() if s.active), None)
+
+    def capturing(self):
+        """The CUDA graph capture being recorded now, or None."""
+        return self.graphs.capturing if self.graphs is not None else None
 
     def traces(self) -> Dict[str, Optional[dict]]:
         return {name: s.result for name, s in self.stretches.items()}

@@ -20,8 +20,9 @@ def bound(q_shape, beams: int, kv_shape, kv_elem_bytes: float, q_elem_bytes: int
 def install(ctx, range_name: str = "cross_attn"):
     """Wrap ``models.whisper._cross_attention`` (the model-level call that
     attends one layer's queries to the cross K/V, whatever implements it):
-    while a stretch is traced, each call runs in a ``bench:cross_attn``
-    range and adds its bound to the stretch."""
+    while a stretch is traced or a CUDA graph capture is recorded, each
+    call runs in a ``bench:cross_attn`` range and adds its bound to the
+    stretch, or to the capture (added to a take once per replay)."""
     import torch
     from taiwan_whisper_tpu_torch.models import whisper as M
 

@@ -18,8 +18,10 @@ def bound(q_shape, k_shape, causal: bool, elem_bytes: int) -> float:
 
 def install(ctx, range_name: str = "dec_attn"):
     """Wrap ``decoder_attention`` as ``models/whisper.py::_decoder_train_layer``
-    calls it: while a stretch is traced, each call runs in a
-    ``bench:dec_attn`` range and adds its bound to the stretch. A port
+    calls it: while a stretch is traced or a CUDA graph capture is
+    recorded, each call runs in a ``bench:dec_attn`` range and adds its
+    bound to the stretch, or to the capture (added to a take once per
+    replay). A port
     without ``decoder_attention`` is left as it is (the metric reads
     nothing there)."""
     import torch

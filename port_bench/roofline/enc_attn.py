@@ -14,8 +14,10 @@ def bound(shape, elem_bytes: int) -> float:
 
 def install(ctx, range_name: str = "enc_attn"):
     """Wrap ``encoder_attention`` as ``models/whisper.py::_encoder_layer``
-    calls it: while a stretch is traced, each call runs in a
-    ``bench:enc_attn`` range and adds its bound to the stretch."""
+    calls it: while a stretch is traced or a CUDA graph capture is
+    recorded, each call runs in a ``bench:enc_attn`` range and adds its
+    bound to the stretch, or to the capture (added to a take once per
+    replay)."""
     import torch
     from taiwan_whisper_tpu_torch.models import whisper as M
 

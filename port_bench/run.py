@@ -80,6 +80,10 @@ def main(argv=None, *, device=None, root: str = ROOT, t_start: float = None) -> 
         ctx = harness.Ctx(plan, seed=args.seed, seconds=args.seconds, trace=bool(args.trace),
                           device=device, workdir=wd)
         try:
+            if args.trace:
+                from .trace import watch_graphs
+
+                watch_graphs(ctx)
             for mod in metric_mods.values():
                 if hasattr(mod, "install"):
                     mod.install(ctx)
@@ -106,8 +110,9 @@ def main(argv=None, *, device=None, root: str = ROOT, t_start: float = None) -> 
             if v is not None:
                 metrics[m["name"]] = {"value": float(v), "unit": m["unit"]}
     else:
+        # a reading that only the card gives (device memory) is absent on the CPU
         metrics = {m["name"]: {"value": float(out["e2e"][m["name"]]), "unit": m["unit"]}
-                   for m in plan.end_to_end}
+                   for m in plan.end_to_end if out["e2e"].get(m["name"]) is not None}
     dev = {"platform": "gpu" if device.type == "cuda" else device.type,
            "kind": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
            "count": plan.chips, "memory_peak_bytes": int(peak)}

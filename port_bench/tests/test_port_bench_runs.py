@@ -89,12 +89,12 @@ def test_new_config_mix_driver_and_metric_by_files_alone(tiny_root, one_thread):
                                  file="port_bench/configs/tiny-other.json"))
     bench["workloads"].append(dict(label, name="label.other.b2", config="tiny-other",
                                    traffic="label_b2"))
-    for m in bench["end_to_end"]:
-        if m["name"] == "audio_s_per_s":
-            m["workloads"].append("label.other.b2")
+    label_e2e = [m for m in bench["end_to_end"] if LABEL in m.get("workloads", [])]
+    for m in label_e2e:
+        m["workloads"].append("label.other.b2")
     bench["per_layer"].append({"name": "dummy.pad_slots", "unit": "slots", "better": "lower",
                                "source": "program_counter", "layer": "label driver",
-                               "moves": "audio_s_per_s", "workloads": ["label.other.b2"]})
+                               "moves": label_e2e[0]["name"], "workloads": ["label.other.b2"]})
     with open(os.path.join(tiny_root, "BENCHMARK.json"), "w", encoding="utf-8") as f:
         json.dump(bench, f)
     out = _run(tiny_root, "label.other.b2", trace=1)
